@@ -6,15 +6,31 @@
 Phases, each reporting on its own lines:
 
 1. device: torch / CUDA versions and the card (``nvidia-smi``);
-2. build: compiles the CUDA kernels from ``emba_tpu_torch/kernels/csrc``;
+2. build: compiles both CUDA kernels from ``emba_tpu_torch/kernels/csrc``,
+   one ``nvcc`` each, in parallel;
 3. kernel check: the A12 accumulation kernel against its plain torch
    version on the same GPU tensors, at the main path's shapes and at edge
    cases; repeated runs must give the same bits;
-4. reference check: a small window solved on the GPU in f32 against the
+4. gather check: the gather-sum kernel in both disciplines against its
+   plain torch version and an f64 sum, at the probe's shapes and at edge
+   cases; repeated runs must give the same bits;
+5. probe: ``emba_tpu_torch.probes.gather_probe``, the gather kernel's own
+   entry point (its JSON line);
+6. reference check: a small window solved on the GPU in f32 against the
    plain CPU path in f64;
-5. main path: one LM window of 2,000,000 events on a 1024x512 panorama with
-   a 97-knot order-2 spline (the problem of ``bench.py``), with
-   ``LMConfig(max_num_iter=8)`` as ``bench.py`` sets it (9 trial steps).
+7. main path, host loop: one LM window of 2,000,000 events on a 1024x512
+   panorama with a 97-knot order-2 spline (the problem of ``bench.py``),
+   ``LMConfig(max_num_iter=8, tol_fun=0)`` (9 trial steps);
+8. main path, fused: the same window through ``solve_window_fused`` (CUDA
+   graphs) with ``bench.py``'s settings (damping 1, ``tol_fun`` 0), twice:
+   the first call captures the graphs, the second reuses them and must
+   give the same bits. Each is held against the host loop: iterations,
+   accept sequence, final cost, and kernel launches against forming
+   passes;
+9. resume: the host loop stopped at iteration 4 by its checkpoint
+   callback, then resumed from the payload, equals the uninterrupted run
+   bit for bit;
+10. CG: the fused window with ``use_cg=True`` lowers the cost.
 
 The line before the last is the kernel report ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -27,8 +43,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -39,36 +53,23 @@ import numpy as np
 # (sorted rows and per-block partials against chunked products and
 # index_add_), which moves sums by a few ulps of their largest terms.
 KERNEL_REL_TOL = 1e-5
+# Error of a gather sum (kernel or plain) against the f64 sum of the same
+# columns, as a fraction of the row's sum of magnitudes. Summing 2M f32
+# terms of random sign in chunks of 256 leaves an error of order 1e-8 of
+# that; 1e-6 also holds for any fixed order of summation at these sizes,
+# and a lost chunk (256 of 2M columns, ~1e-4) fails it.
+GATHER_REL_TOL = 1e-6
+# Final cost of the fused window against the host loop on the card. Both
+# run in f32, but the host loop keeps lambda and the cost sum in f64 on the
+# host, the fused loop in f32 on the device: lambda differs by an ulp after
+# a few steps, which moves the trial states by rounding only.
+FUSED_COST_REL_TOL = 1e-5
+MAIN_ITERS = 8  # LM max_num_iter of the main window, as bench.py sets it
 
 
 def _require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def _nvidia_smi():
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps=5):
-    """Median milliseconds of ``reps`` runs after one warm-up, CUDA events."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _kernel_inputs(rng, n, hw, knots, order, device, pix=None, zero_w=False):
@@ -113,6 +114,7 @@ def check_kernel_case(name, args, num_pix, knots, order, carry_args=None):
     case's (max_abs_err, kernel_ms, plain_ms)."""
     import torch
 
+    from emba_tpu_torch.device import cuda_time_ms
     from emba_tpu_torch.kernels import a12_accum as K
 
     dim_pose = 3 * knots
@@ -149,8 +151,8 @@ def check_kernel_case(name, args, num_pix, knots, order, carry_args=None):
         parts.append(f"{key} abs {err:.3e} rel {rel:.3e}")
         max_abs = max(max_abs, err)
     del got, again, want
-    k_ms = _time_ms(kernel)
-    p_ms = _time_ms(plain)
+    k_ms = cuda_time_ms(kernel)
+    p_ms = cuda_time_ms(plain)
     torch.cuda.empty_cache()
     print(f"kernel {name}: bitwise-repeatable; " + "; ".join(parts)
           + f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
@@ -185,9 +187,96 @@ def phase_kernels(device):
     return main
 
 
+def check_gather_case(name, payload, idx, timed=False):
+    """The gather kernel in both disciplines against its plain version on
+    the same GPU tensors and against an f64 sum of the same columns.
+    Returns (max |kernel - plain|, {discipline: (kernel ms, plain ms)})."""
+    import torch
+
+    from emba_tpu_torch.device import cuda_time_ms
+    from emba_tpu_torch.kernels import gather_sum as G
+
+    cols = payload.double().index_select(1, idx.reshape(-1).long())
+    want = cols.sum(dim=1, keepdim=True)
+    scale = cols.abs().sum(dim=1, keepdim=True).clamp(min=1e-30)
+    del cols
+    plain = G.gather_sum_plain(payload, idx)
+    max_abs, times, parts = 0.0, {}, []
+    for serial in (False, True):
+        tag = "serial" if serial else "batched"
+        got = G.gather_sum(payload, idx, serial)
+        again = G.gather_sum(payload, idx, serial)
+        torch.cuda.synchronize()
+        _require(got.shape == (payload.shape[0], 1), f"gather {name}: shape {got.shape}")
+        _require(torch.equal(got, again), f"gather {name} {tag}: repeated runs differ")
+        _require(torch.isfinite(got).all().item(), f"gather {name} {tag}: not finite")
+        for who, out in ((tag, got), ("plain", plain)):
+            rel = float(((out.double() - want).abs() / scale).max())
+            _require(rel <= GATHER_REL_TOL,
+                     f"gather {name} {who}: rel err {rel:.3e} > {GATHER_REL_TOL:.0e}")
+            parts.append(f"{who} {rel:.2e}")
+        max_abs = max(max_abs, float((got - plain).abs().max()))
+        if timed:
+            times[tag] = (
+                cuda_time_ms(lambda: G.gather_sum(payload, idx, serial, check_ids=False)),
+                cuda_time_ms(lambda: G.gather_sum_plain(payload, idx)))
+    print(f"gather {name}: bitwise-repeatable; err / sum|x| vs f64: " + ", ".join(parts)
+          + f"; max |kernel - plain| {max_abs:.3e}"
+          + "".join(f"; {t} kernel {k:.3f} ms, plain {p:.3f} ms"
+                    for t, (k, p) in times.items()), flush=True)
+    return max_abs, times
+
+
+def phase_gather(device):
+    """Every gather case; returns (max abs err, R=16 batched kernel ms,
+    its plain ms)."""
+    import torch
+
+    from emba_tpu_torch.kernels.gather_sum import MC
+
+    rng = np.random.default_rng(5)
+    n = 2_000_000
+    max_abs, main_times = 0.0, None
+
+    def gpu(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    for rows in (8, 16):
+        payload = gpu(rng.standard_normal((rows, n)), torch.float32)
+        perm = rng.permutation(n).astype(np.int32)
+        idx = gpu(perm[:n // MC * MC].reshape(-1, MC), torch.int32)
+        err, times = check_gather_case(f"R={rows} N={n} chunks={n // MC}", payload,
+                                       idx, timed=True)
+        max_abs = max(max_abs, err)
+        if rows == 16:
+            main_times = times["batched"]
+    edge = [
+        ("one chunk", payload, idx[:1].contiguous()),
+        ("repeated ids", payload, gpu(rng.integers(0, 64, (40, MC)), torch.int32)),
+        ("R=1", gpu(rng.standard_normal((1, n)), torch.float32), idx),
+        ("MC=1, last column", payload, gpu(np.full((3, 1), n - 1), torch.int32)),
+    ]
+    for name, p_, i_ in edge:
+        max_abs = max(max_abs, check_gather_case(name, p_, i_)[0])
+    return max_abs, main_times[0], main_times[1]
+
+
+def phase_probe():
+    """The probe's own entry point; returns the gather kernel's launches."""
+    from emba_tpu_torch import kernels
+    from emba_tpu_torch.probes import gather_probe
+
+    kernels.reset_launch_counts()
+    _require(gather_probe.main([]) == 0, "probe failed")
+    launches = kernels.launch_counts()["gather_sum"]
+    _require(launches > 0, "probe: the gather kernel was not launched")
+    print(f"probe: gather_sum launches {launches}", flush=True)
+    return launches
+
+
 def _window(scene, traj, n, cfg_dtype, device, sensor):
-    from emba_tpu.pairing import build_window  # numpy-only host module
     from emba_tpu_torch import model as M
+    from emba_tpu_torch.pairing import build_window
 
     win = build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
                        sensor.width, traj.locate, 100)
@@ -242,44 +331,34 @@ def phase_reference(device):
 
 
 def phase_main(device):
-    """The bench problem through the port's entry points. Returns launches."""
+    """The bench problem through the host loop. Returns the window, its
+    settings and the run's results for the phases after it."""
     import torch
 
-    from emba_tpu_torch import metrics, solver, synth
-    from emba_tpu_torch import model as M
-    from emba_tpu_torch.kernels import a12_accum as K
+    from emba_tpu_torch import kernels, metrics, solver
+    from emba_tpu_torch.probes.profile_fused import main_window
 
     t0 = time.perf_counter()
-    rng = np.random.default_rng(7)
-    sensor = synth.default_sensor(128, 128, f=128 * 0.9)
-    B = synth.smooth_random_map(512, 1024, rng, smooth=4, amp=3.0)
-    scene = synth.generate(rng, sensor, pano_width=1024, pano_height=512,
-                           c_th=0.1, t_end=4.8, dt_knots=0.05, num_steps=600,
-                           motion_amp=0.22, brightness=B)
-    n = min(len(scene.t), 2_000_000)
-    traj0 = _perturbed(scene.traj, 1, 0.01)
-    cfg = M.ModelConfig(c_th=0.1, pano_width=1024, pano_height=512,
-                        thres_valid_pixel=3, alpha=0.5, outlier_dp_norm=3.0)
-    dev = _window(scene, traj0, n, torch.float32, device, sensor)
-    knots0, Gx0, Gy0 = (torch.as_tensor(a).to(device=device, dtype=torch.float32)
-                        for a in (traj0.knots, scene.gx, scene.gy))
+    w = main_window(device)
+    scene, traj0, n, cfg, dev = (w[k] for k in ("scene", "traj0", "n", "cfg", "dev"))
+    knots0, Gx0, Gy0 = w["start"]
     print(f"main: scene {len(scene.t)} events, window {int(dev.pol_signed.shape[0])} "
           f"events, {traj0.num_knots} knots, set-up {time.perf_counter() - t0:.1f} s",
           flush=True)
     _require(traj0.num_knots == 97, f"expected 97 knots, got {traj0.num_knots}")
 
-    lm = solver.LMConfig(max_num_iter=8)
+    # tol_fun 0 as bench.py's fused window: no early convergence
+    lm = solver.LMConfig(max_num_iter=MAIN_ITERS, tol_fun=0.0)
     # warm-up (CUDA context, cuBLAS / cuSOLVER handles), not counted
     solver.solve_window(knots0, Gx0, Gy0, dev, cfg, solver.LMConfig(max_num_iter=1),
                         fix_first=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    K.launches = 0
+    peaks = _reset_peak_memory()
+    kernels.reset_launch_counts()
     knots, Gx, Gy, st = solver.solve_window(knots0, Gx0, Gy0, dev, cfg, lm,
                                             fix_first=True)
     torch.cuda.synchronize()
-    launches = K.launches
-    peak = torch.cuda.max_memory_allocated(device)
+    launches = kernels.launch_counts()["a12_accum"]
+    peak = peaks()
 
     _require(knots.shape == knots0.shape and Gx.shape == Gx0.shape, "output shapes")
     for name, t in (("knots", knots), ("Gx", Gx), ("Gy", Gy)):
@@ -304,10 +383,160 @@ def phase_main(device):
         [[r["cost_min"], r["cost_new"]] for r in st.iterations]), flush=True)
     print(f"main: rotation RMSE vs GT {metrics.trajectory_rmse_deg(traj0, tt, R_gt):.4f}"
           f" -> {metrics.trajectory_rmse_deg(traj1, tt, R_gt):.4f} deg", flush=True)
-    print(f"main: peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"main: peak device memory {peak}", flush=True)
     print(f"main: a12_accumulate launches {launches} == count_form {st.count_form}",
           flush=True)
+    return dict(dev=dev, cfg=cfg, start=(knots0, Gx0, Gy0), lm=lm, n=n,
+                host=(knots, Gx, Gy, st))
+
+
+def _reset_peak_memory():
+    """Free the allocator's cache and reset its peaks; returns a function
+    that describes the peaks since. A CUDA graph keeps the memory of what
+    its capture freed in its private pool, which counts as reserved and not
+    as allocated, so both peaks are reported."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def peaks():
+        return (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated, "
+                f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
+    return peaks
+
+
+def _fused(ctx, use_cg=False):
+    """One solve_window_fused call on the main window; returns (outputs,
+    LoopStats, a12 launches, peak memory, call seconds)."""
+    import torch
+
+    from emba_tpu_torch import kernels, lm, solver
+
+    stats = lm.LoopStats()
+    peaks = _reset_peak_memory()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = solver.solve_window_fused(
+        *ctx["start"], ctx["dev"], ctx["cfg"], 1.0, 0.0, fix_first=True,
+        use_cg=use_cg, max_num_iter=MAIN_ITERS, return_trace=True, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()["a12_accum"]
+    return out, stats, launches, peaks(), wall
+
+
+def _finite(name, tensors):
+    import torch
+
+    for t in tensors:
+        _require(torch.isfinite(t).all().item(), f"{name}: NaN/Inf in the state")
+
+
+def phase_fused(ctx):
+    """The main window through solve_window_fused twice: the first call
+    builds and captures the graphs, the second reuses them. Each is held
+    against the host loop on the card, and the two against each other bit
+    for bit. Returns the a12 kernel launches of the second call."""
+    import torch
+
+    from emba_tpu_torch import lm
+
+    first = _fused(ctx)
+    (k, gx, gy, cost, it, conv, trace), st, launches, peak, wall = _fused(ctx)
+    _finite("fused", (k, gx, gy))
+    _require(st.setup_s == 0.0 and first[1].setup_s > 0.0,
+             "fused: the second call did not reuse the first call's graphs")
+    _require(all(torch.equal(a, b) for a, b in zip(first[0], (k, gx, gy, cost, it,
+                                                               conv, trace))),
+             "fused: the call that reused the graphs differs from the first")
+    n_it = int(it)
+    recs = lm.trace_records(trace.cpu().double().numpy(), n_it)
+    host = ctx["host"][3]
+    host_acc = [r["cost_new"] < r["cost_min"] for r in host.iterations]
+    fused_acc = [r["accepted"] for r in recs]
+    host_cost = min([r["cost_min"] for r in host.iterations]
+                    + [r["cost_new"] for r in host.iterations])
+    rel = abs(float(cost) - host_cost) / abs(host_cost)
+    eps_loop = ctx["n"] * n_it / st.loop_s
+    eps_call = ctx["n"] * n_it / wall
+    eps_host = host.events_per_second()["total"]
+    print(f"fused: {n_it} iterations, accepts {''.join('A' if a else 'r' for a in fused_acc)}"
+          f" (host loop {''.join('A' if a else 'r' for a in host_acc)}), cost "
+          f"{float(cost):.6f} vs host {host_cost:.6f} (rel {rel:.2e}); the call that "
+          f"reused the graphs equals the first bit for bit", flush=True)
+    print(f"fused: first call {first[4]:.4f} s (set-up: warm-up + captures "
+          f"{first[1].setup_s:.4f} s, loop {first[1].loop_s:.4f} s); second call "
+          f"{wall:.4f} s (loop {st.loop_s:.4f} s) vs host loop {host.time_total_s:.4f} s; "
+          f"events/s second call {eps_call:.4g}, its loop {eps_loop:.4g}, host loop "
+          f"{eps_host:.4g}", flush=True)
+    print(f"fused: replays {json.dumps(st.replays)}; forming passes {st.form_passes}, "
+          f"a12_accumulate launches {launches} (first call: {first[1].form_passes} "
+          f"forming passes with the warm-up's, {first[2]} launches); host loop forms "
+          f"{host.count_form}; peak device memory first call {first[3]}, second {peak}",
+          flush=True)
+    _require(n_it == len(host.iterations),
+             f"fused: {n_it} iterations != host loop {len(host.iterations)}")
+    _require(fused_acc == host_acc, "fused: accept/reject sequence differs from the host loop")
+    _require(rel <= FUSED_COST_REL_TOL,
+             f"fused: final cost rel err {rel:.2e} > {FUSED_COST_REL_TOL:.0e}")
+    for name, (passes, n_launch) in (("first", (first[1].form_passes, first[2])),
+                                     ("second", (st.form_passes, launches))):
+        _require(n_launch == passes,
+                 f"fused {name} call: {n_launch} kernel launches != {passes} forming passes")
+    _require(st.replays["form"] == host.count_form,
+             f"fused: {st.replays['form']} form replays != host loop {host.count_form}")
     return launches
+
+
+def phase_resume(ctx):
+    """Host loop stopped at iteration 4 by its checkpoint callback, resumed
+    from the payload: the bits of the uninterrupted run."""
+    import torch
+
+    from emba_tpu_torch import solver
+
+    class Stop(Exception):
+        pass
+
+    captured = {}
+
+    def checkpoint(state):
+        captured.update(state)
+        if state["it"] >= 4:
+            raise Stop
+
+    args = (*ctx["start"], ctx["dev"], ctx["cfg"], ctx["lm"])
+    try:
+        solver.solve_window(*args, fix_first=True, checkpoint_cb=checkpoint,
+                            checkpoint_every=1)
+        raise RuntimeError("chip_smoke: resume: the run was not stopped")
+    except Stop:
+        pass
+    _require(captured["it"] == 4, f"resume: stopped at it={captured['it']}")
+    k, gx, gy, st = solver.solve_window(*args, fix_first=True, resume_state=captured)
+    k_ref, gx_ref, gy_ref, st_ref = ctx["host"]
+    same = [torch.equal(a, b) for a, b in ((k, k_ref), (gx, gx_ref), (gy, gy_ref))]
+    print(f"resume: stopped at it=4, resumed for {len(st.iterations)} iterations "
+          f"(uninterrupted {len(st_ref.iterations)}); knots/Gx/Gy bit-equal {same}",
+          flush=True)
+    _require(len(st.iterations) == len(st_ref.iterations) - 4, "resume: iteration count")
+    _require(all(same), "resume: the resumed state differs from the uninterrupted run")
+
+
+def phase_cg(ctx):
+    """The fused main window with the CG solve: cost falls, no NaN."""
+    (k, gx, gy, cost, it, conv, trace), st, launches, peak, wall = _fused(
+        ctx, use_cg=True)
+    _finite("cg", (k, gx, gy))
+    cost0 = float(trace[0, 1])
+    print(f"cg: {int(it)} iterations, cost {cost0:.6f} -> {float(cost):.6f}; CG "
+          f"iterations per solve {st.cg_iterations}; relative residuals "
+          f"{[f'{e:.1e}' for e in st.cg_error]}; loop wall {st.loop_s:.4f} s, "
+          f"peak device memory {peak}", flush=True)
+    _require(float(cost) < cost0, f"cg: cost did not fall ({cost0} -> {float(cost)})")
+    _require(launches == st.form_passes, "cg: kernel launches != forming passes")
 
 
 def main() -> int:
@@ -318,33 +547,49 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from emba_tpu_torch.device import full_precision, require_cuda
+    from emba_tpu_torch import kernels
+    from emba_tpu_torch.device import card_name_and_power_limit, full_precision, require_cuda
     from emba_tpu_torch.kernels import _build
 
     device = require_cuda()
     full_precision()
-    smi = _nvidia_smi()
+    smi = card_name_and_power_limit()
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    lib = _build.build("a12_accum")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    libs = _build.build_all(kernels.KERNELS)
+    print(f"build: {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
-    max_abs, k_ms, p_ms = phase_kernels(device)
+    a12_err, a12_ms, a12_plain_ms = phase_kernels(device)
+    g_err, g_ms, g_plain_ms = phase_gather(device)
+    g_launches = phase_probe()
     phase_reference(device)
-    launches = phase_main(device)
+    ctx = phase_main(device)
+    a12_launches = phase_fused(ctx)
+    phase_resume(ctx)
+    phase_cg(ctx)
 
     report = {"kernels": [{
         "name": "a12_accumulate",
         "route": "cuda",
         "source": "emba_tpu_torch/kernels/csrc/a12_accum.cu",
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "launches": a12_launches,
+        "max_abs_err": a12_err,
+        "ms": a12_ms,
+        "plain_ms": a12_plain_ms,
+    }, {
+        "name": "gather_sum",
+        "route": "cuda",
+        "source": "emba_tpu_torch/kernels/csrc/gather_sum.cu",
+        "replaces": "scripts/r5_dma_gather_probe.py:46",
+        "launches": g_launches,
+        "max_abs_err": g_err,
+        "ms": g_ms,
+        "plain_ms": g_plain_ms,
     }]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

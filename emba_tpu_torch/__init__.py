@@ -3,9 +3,10 @@
 The same bundle adjustment (LEGM linearization, Schur-structured normal
 equations, LM window solve) on torch tensors, with the normal-equation
 accumulation as a hand-written CUDA kernel for Hopper
-(``kernels/csrc/a12_accum.cu``). Modules keep the names and argument order
-of their ``emba_tpu`` counterparts. The port imports no JAX; the host
-pairing comes from ``emba_tpu.pairing``, which is numpy only.
+(``kernels/csrc/a12_accum.cu``) and the fused window replayed from CUDA
+graphs; ``probes/`` measures the card (the gather floor). Modules keep the
+names and argument order of their ``emba_tpu`` counterparts. The port imports
+nothing of JAX or of ``emba_tpu``.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +24,7 @@ def __getattr__(name):
         "DeviceWindow": ("model", "DeviceWindow"),
         "LMConfig": ("solver", "LMConfig"),
         "solve_window": ("solver", "solve_window"),
+        "solve_window_fused": ("solver", "solve_window_fused"),
         "require_cuda": ("device", "require_cuda"),
     }
     if name in api:

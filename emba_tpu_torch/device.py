@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import statistics
+import subprocess
+
 import torch
 
 
@@ -18,3 +21,28 @@ def full_precision() -> None:
     noisier)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def card_name_and_power_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``reps`` runs of ``fn`` after one warm-up,
+    each between two CUDA events on the current stream."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -26,7 +26,8 @@ CHUNK = 1 << 16  # measurements per step of the plain version
 A11_BLOCKS = 1024  # most private A11 partials of the kernel
 A11_MIN_PER_BLOCK = 256  # fewest measurements a partial covers
 
-# Launches of the CUDA kernel in this process; a caller may reset it.
+# Launches of the CUDA kernel in this process; a caller may reset it. A
+# CUDA graph that holds the launch adds one per replay (``lm.CapturedPhase``).
 launches = 0
 
 
@@ -108,6 +109,19 @@ def check_inputs(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix: int,
     return n, r_pad, dp_pad
 
 
+def row_offsets(pm_pix, r_pad: int):
+    """The kernel's prepass: measurement ids sorted by row (stable) and the
+    (r_pad + 1,) int32 offsets of each row's run in that order; rows >=
+    r_pad fall past ``row_off[r_pad]``. The offsets come from a binary
+    search over the sorted rows, not from ``bincount``, which reads its
+    length on the host: no host synchronization, so it can be captured in
+    a CUDA graph, and integer, so deterministic."""
+    rows, order_ids = torch.sort(pm_pix, stable=True)
+    bounds = torch.arange(r_pad + 1, dtype=rows.dtype, device=rows.device)
+    row_off = torch.searchsorted(rows, bounds, out_int32=True)
+    return order_ids.to(torch.int32), row_off
+
+
 def _launch(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix, dim_pose, order,
             carry):
     global launches
@@ -123,12 +137,7 @@ def _launch(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix, dim_pose, order,
     else:
         a12, px5, a11b = carry
 
-    # prepass: measurement ids sorted by row (stable), per-row offsets
-    order_ids = torch.sort(pm_pix, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(pm_pix.long(), minlength=r_pad)[:r_pad]
-    row_off = torch.zeros(r_pad + 1, dtype=torch.int32, device=device)
-    row_off[1:] = torch.cumsum(counts, 0)
-
+    order_ids, row_off = row_offsets(pm_pix, r_pad)
     nblk = max(1, min(A11_BLOCKS, -(-n // A11_MIN_PER_BLOCK)))
     per_block = -(-n // nblk)
     partial = torch.empty((nblk, dim_pose + 1, dim_pose), dtype=torch.float32,

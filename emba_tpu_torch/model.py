@@ -125,7 +125,7 @@ class DeviceWindow:
     @classmethod
     def from_window(cls, win, bearing_lut: np.ndarray, sensor_width: int, dtype,
                     device):
-        """Move an ``emba_tpu.pairing.EventWindow`` to ``device``."""
+        """Move a ``pairing.EventWindow`` to ``device``."""
         spix = win.sensor_flat_idx(sensor_width)
 
         def t(a, dt):
@@ -380,6 +380,36 @@ def _finish_normal_eq(A11, b1, a22xx, a22xy, a22yy, b2x, b2y, A12, row_active,
 # ---------------------------------------------------------------------------
 
 
+def _chol(S):
+    """Lower Cholesky factor. ``cholesky_ex`` leaves its status on the
+    device (a failed factor gives NaN, as ``cho_factor`` in the reference)
+    instead of reading it on the host, so a CUDA graph can hold it."""
+    return torch.linalg.cholesky_ex(S).L
+
+
+def _chol_solve(L, b):
+    return torch.cholesky_solve(b[:, None], L)[:, 0]
+
+
+def _masked_planes(neq: NormalEq, fix_first: bool):
+    """(A11, b1, Ae, Ao) with the padded pose columns (and, with
+    ``fix_first``, the first pose's rows and columns) masked out."""
+    dt = neq.b1.dtype
+    device = neq.b1.device
+    dim = neq.b1.shape[0]
+    dp_pad = neq.A12.shape[1] // 2
+    A11, b1 = neq.A11, neq.b1
+    cols = torch.arange(dp_pad, device=device)
+    colmask = ((cols >= (3 if fix_first else 0)) & (cols < dim)).to(dt)
+    if fix_first:
+        m = (torch.arange(dim, device=device) >= 3).to(dt)
+        A11 = A11 * m[:, None] * m[None, :] + torch.diag(1.0 - m)
+        b1 = b1 * m
+    Ae = neq.A12[:, :dp_pad] * colmask[None, :]
+    Ao = neq.A12[:, dp_pad:] * colmask[None, :]
+    return A11, b1, Ae, Ao
+
+
 def _damped_a22_inv(neq: NormalEq, lam):
     """Per-pixel inverse of the LM-damped 2x2 blocks; zero where inactive.
     A22m = A22 + lam * diag(A22)."""
@@ -408,15 +438,7 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
     device = neq.b1.device
     dim = neq.b1.shape[0]
     dp_pad = neq.A12.shape[1] // 2
-    A11, b1 = neq.A11, neq.b1
-    cols = torch.arange(dp_pad, device=device)
-    colmask = ((cols >= (3 if fix_first else 0)) & (cols < dim)).to(dt)
-    if fix_first:
-        m = (torch.arange(dim, device=device) >= 3).to(dt)
-        A11 = A11 * m[:, None] * m[None, :] + torch.diag(1.0 - m)
-        b1 = b1 * m
-    Ae = neq.A12[:, :dp_pad] * colmask[None, :]
-    Ao = neq.A12[:, dp_pad:] * colmask[None, :]
+    A11, b1, Ae, Ao = _masked_planes(neq, fix_first)
 
     A11m = A11 + lam * torch.diag(torch.diag(A11))
     m00, m01, m11 = _damped_a22_inv(neq, lam)
@@ -434,8 +456,7 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
     eps = 1e-10 * torch.clamp(torch.max(torch.diag(S)), min=1.0) + 1e-30
     S = S + eps * torch.eye(dim, dtype=dt, device=device)
 
-    L = torch.linalg.cholesky(S)
-    x1 = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+    x1 = _chol_solve(_chol(S), rhs)
 
     x1_pad = torch.zeros(dp_pad, dtype=dt, device=device)
     x1_pad[:dim] = x1
@@ -444,6 +465,95 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
     x2x = m00 * vx + m01 * vy
     x2y = m01 * vx + m11 * vy
     return x1, torch.stack([x2x, x2y])
+
+
+def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
+                       max_iter: int = 100, tol: float = 1e-6,
+                       early_exit: bool = True):
+    """Matrix-free conjugate gradient on the full system
+    [A11m A12; A12^T A22m] (counterpart of ``emba_tpu.model.solve_normal_eq_cg``),
+    the operator applied blockwise, with the block-Jacobi preconditioner:
+    exact A11m by one Cholesky, exact per-pixel 2x2 A22m blocks.
+
+    It stops after ``max_iter`` iterations or once the residual norm falls
+    below ``tol`` times the right-hand side's. With ``early_exit`` it reads
+    that test on the host each iteration and leaves the loop; without, it
+    runs all ``max_iter`` iterations and freezes the state once the test is
+    met (the same result and iteration count), as a loop captured in a CUDA
+    graph must. Returns (x1 (3K,), x2 (2, R_pad), iterations, relative
+    residual).
+    """
+    dt = neq.b1.dtype
+    device = neq.b1.device
+    dim = neq.b1.shape[0]
+    dp_pad = neq.A12.shape[1] // 2
+    A11, b1, Ae, Ao = _masked_planes(neq, fix_first)
+
+    A11m = A11 + lam * torch.diag(torch.diag(A11))
+    axx = neq.a22_xx * (1.0 + lam)
+    axy = neq.a22_xy
+    ayy = neq.a22_yy * (1.0 + lam)
+    act = neq.active.to(dt)
+
+    def pad(x1):
+        return torch.nn.functional.pad(x1, (0, dp_pad - dim))
+
+    def matvec(x1, x2x, x2y):
+        y1 = A11m @ x1 + (x2x @ Ae + x2y @ Ao)[:dim]
+        a22x = axx * x2x + axy * x2y
+        a22y = axy * x2x + ayy * x2y
+        # inactive pixels: identity rows (their rhs is zero, so they stay zero)
+        y2x = Ae @ pad(x1) + torch.where(neq.active, a22x, x2x)
+        y2y = Ao @ pad(x1) + torch.where(neq.active, a22y, x2y)
+        return y1, y2x, y2y
+
+    def dot(a, b):
+        return sum(torch.sum(x * y) for x, y in zip(a, b))
+
+    b = (b1, neq.b2_x * act, neq.b2_y * act)
+    bnorm2 = dot(b, b)
+
+    eps11 = 1e-10 * torch.clamp(torch.max(torch.diag(A11m)), min=1.0) + 1e-30
+    L11 = _chol(A11m + eps11 * torch.eye(dim, dtype=dt, device=device))
+    det22 = axx * ayy - axy * axy
+    det22_safe = torch.where(torch.abs(det22) < 1e-30, torch.ones_like(det22), det22)
+    inv_ok = neq.active & (torch.abs(det22) >= 1e-30)
+    one, zero = torch.ones_like(det22), torch.zeros_like(det22)
+    i00 = torch.where(inv_ok, ayy / det22_safe, one)
+    i01 = torch.where(inv_ok, -axy / det22_safe, zero)
+    i11 = torch.where(inv_ok, axx / det22_safe, one)
+
+    def precond(r1, r2x, r2y):
+        return _chol_solve(L11, r1), i00 * r2x + i01 * r2y, i01 * r2x + i11 * r2y
+
+    x = tuple(torch.zeros_like(v) for v in b)
+    r = b
+    p = precond(*r)
+    rz = dot(r, p)
+    rs = bnorm2
+    it = torch.zeros((), dtype=torch.int64, device=device)
+    for _ in range(max_iter):
+        run = rs > tol * tol * bnorm2
+        if early_exit and not bool(run):
+            break
+        ap = matvec(*p)
+        alpha = rz / (dot(p, ap) + 1e-300)
+        x_new = tuple(xi + alpha * pi for xi, pi in zip(x, p))
+        r_new = tuple(ri - alpha * api for ri, api in zip(r, ap))
+        z = precond(*r_new)
+        rz_new = dot(r_new, z)
+        rs_new = dot(r_new, r_new)
+        beta = rz_new / (rz + 1e-300)
+        p_new = tuple(zi + beta * pi for zi, pi in zip(z, p))
+        x = tuple(torch.where(run, n, o) for n, o in zip(x_new, x))
+        r = tuple(torch.where(run, n, o) for n, o in zip(r_new, r))
+        p = tuple(torch.where(run, n, o) for n, o in zip(p_new, p))
+        rz = torch.where(run, rz_new, rz)
+        rs = torch.where(run, rs_new, rs)
+        it = it + run.to(it.dtype)
+    x1, x2x, x2y = x
+    rel = torch.sqrt(rs / torch.clamp(bnorm2, min=1e-300))
+    return x1, torch.stack([x2x * act, x2y * act]), it, rel
 
 
 def update_map(Gx, Gy, x2, damping, neq: NormalEq):

@@ -1,0 +1,154 @@
+"""Where the time of an LM window goes on the card: device time against
+wall time for the host loop, the fused loop and the fused loop with CG.
+
+    python -m emba_tpu_torch.probes.profile_fused [--out PATH]
+
+The window is the bench problem (:func:`main_window`): 2,000,000 events,
+a 1024x512 panorama, a 97-knot order-2 spline, f32, ``fix_first``,
+``tol_fun`` 0. Each loop is run with ``max_num_iter`` 8 (9 trial steps)
+and 0 (1 trial step) under ``torch.profiler`` (CUDA activity only), after
+an unprofiled call with the same settings (so the fused loop's graphs are
+built and cached before the profiled call). The difference of the two
+runs is 8 steps with the set-up and the first objective cancelled:
+
+* ``wall_ms``: host clock, device synchronized at both ends;
+* ``device_ms``: the sum of the device activities (kernels, copies,
+  fills) the profiler recorded;
+* ``idle``: 1 - device_ms / wall_ms.
+
+``REPS`` repetitions of each. ``top`` lists the device activities of the
+last 9-step run of each loop by total time (name, count, ms). It prints
+one JSON line, with ``device`` naming the card and its power limit, and
+writes it to PATH only when ``--out`` is given. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import solver, spline, synth
+from .. import model as M
+from ..device import card_name_and_power_limit, full_precision, require_cuda
+from ..pairing import build_window
+
+STEPS = (8, 0)  # max_num_iter of the long and the short run
+REPS = 2
+
+
+def main_window(device):
+    """The bench problem on ``device`` in f32: the first 2,000,000 events of
+    a synthetic scene seen by a 128x128 sensor over a smooth random
+    1024x512 brightness map, with the trajectory perturbed by a random walk
+    (seed 1, 0.01 rad a knot). Returns a dict with ``scene``, ``traj0``
+    (the perturbed start), ``n`` (events used), ``cfg``, ``dev`` (the
+    DeviceWindow) and ``start`` (knots, Gx, Gy tensors)."""
+    rng = np.random.default_rng(7)
+    sensor = synth.default_sensor(128, 128, f=128 * 0.9)
+    B = synth.smooth_random_map(512, 1024, rng, smooth=4, amp=3.0)
+    scene = synth.generate(rng, sensor, pano_width=1024, pano_height=512,
+                           c_th=0.1, t_end=4.8, dt_knots=0.05, num_steps=600,
+                           motion_amp=0.22, brightness=B)
+    n = min(len(scene.t), 2_000_000)
+    steps = np.random.default_rng(1).normal(size=(scene.traj.num_knots, 3)) * 0.01
+    walk = np.cumsum(steps, axis=0)
+    walk -= walk[0]
+    traj0 = dataclasses.replace(scene.traj, knots=spline._np_exp(walk) @ scene.traj.knots)
+    cfg = M.ModelConfig(c_th=0.1, pano_width=1024, pano_height=512,
+                        thres_valid_pixel=3, alpha=0.5, outlier_dp_norm=3.0)
+    win = build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
+                       sensor.width, traj0.locate, 100)
+    dev = M.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                     torch.float32, device)
+    start = tuple(torch.as_tensor(a).to(device=device, dtype=torch.float32)
+                  for a in (traj0.knots, scene.gx, scene.gy))
+    return dict(scene=scene, traj0=traj0, n=n, cfg=cfg, dev=dev, start=start)
+
+
+def _loops(w):
+    """name -> fn(max_num_iter) running that loop on the window once."""
+    def host(iters):
+        solver.solve_window(*w["start"], w["dev"], w["cfg"],
+                            solver.LMConfig(max_num_iter=iters, tol_fun=0.0),
+                            fix_first=True)
+
+    def fused(iters, use_cg=False):
+        solver.solve_window_fused(*w["start"], w["dev"], w["cfg"], 1.0, 0.0,
+                                  fix_first=True, use_cg=use_cg, max_num_iter=iters)
+
+    return {"host": host, "fused": fused, "fused_cg": lambda i: fused(i, True)}
+
+
+def _profiled(fn):
+    """(wall ms, device ms, device activities) of one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    acts = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    device = sum(ms for _, ms in acts)
+    if device <= 0:
+        raise RuntimeError("profile_fused: the profiler recorded no device time")
+    return wall, device, acts
+
+
+def _top(acts, k=25):
+    total, count = collections.Counter(), collections.Counter()
+    for name, ms in acts:
+        total[name] += ms
+        count[name] += 1
+    return [[name, count[name], ms] for name, ms in total.most_common(k)]
+
+
+def run(device) -> dict:
+    """The measurements on ``device``, keyed as the module doc says."""
+    w = main_window(device)
+    res, top = {}, {}
+    for name, loop in _loops(w).items():
+        res[name] = []
+        for _ in range(REPS):
+            walls, devs = [], []
+            for iters in STEPS:
+                loop(iters)  # builds and caches the fused loop's graphs
+                wall, dev_ms, acts = _profiled(lambda: loop(iters))
+                walls.append(wall)
+                devs.append(dev_ms)
+                if iters == STEPS[0]:
+                    top[name] = _top(acts)
+            wall, dev_ms = walls[0] - walls[1], devs[0] - devs[1]
+            res[name].append({"wall_ms": wall, "device_ms": dev_ms,
+                              "idle": 1.0 - dev_ms / wall})
+        print(f"profile_fused: {name} {json.dumps(res[name])}", file=sys.stderr, flush=True)
+    return {"steps": STEPS[0] - STEPS[1], "loops": res, "top": top}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the JSON line to this file")
+    args = ap.parse_args(argv)
+    device = require_cuda()
+    full_precision()
+    res = {"device": card_name_and_power_limit(), **run(device)}
+    line = json.dumps(res)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,17 @@
-"""Levenberg-Marquardt loop for one time window (counterpart of the
-host-driven ``emba_tpu.solver.solve_window``).
+"""Levenberg-Marquardt loops for one time window (counterpart of
+``emba_tpu/solver.py``, classic mode).
 
-Same control flow as the reference: lambda schedule and convergence from
-:class:`lm.HostSchedule`, relinearization only after an accepted step (the
-trial evaluation is reused), gauge fixing of the first knot by masking, and
-per-phase timers. Each phase ends with a device synchronization before the
-clock is read, so a phase time is the device time of that phase plus its
-host overhead.
+* :func:`solve_window`: the host-driven loop. Same control flow as the
+  reference: lambda schedule and convergence from :class:`lm.HostSchedule`,
+  relinearization only after an accepted step (the trial evaluation is
+  reused), gauge fixing of the first knot by masking, per-phase timers,
+  the Schur or CG solve, and mid-window checkpoint/resume through
+  :func:`lm_state_dict`. Each phase ends with a device synchronization
+  before the clock is read, so a phase time is the device time of that
+  phase plus its host overhead.
+* :func:`solve_window_fused`: the whole window through :func:`lm.lm_while`
+  (eager on the CPU) or a cached :class:`lm.GraphedLoop` (CUDA graphs on
+  the card), with no per-phase timers.
 """
 
 from __future__ import annotations
@@ -87,12 +92,38 @@ def _init_costs(knots, Gx, Gy, dev, cfg):
     return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
 
 
-def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first):
-    """Schur solve + trial state."""
-    x1, x2 = M.solve_normal_eq(neq, lam, fix_first)
+def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
+                  early_exit=True):
+    """Schur or CG solve + trial state. Returns (knots', Gx', Gy', cg_it,
+    cg_err): CG's iterations and relative residual as 0-d tensors, None
+    for the Schur solve. ``early_exit=False`` for a solve captured in a
+    CUDA graph (see :func:`model.solve_normal_eq_cg`)."""
+    if use_cg:
+        x1, x2, cg_it, cg_err = M.solve_normal_eq_cg(neq, lam, fix_first,
+                                                     early_exit=early_exit)
+    else:
+        (x1, x2), cg_it, cg_err = M.solve_normal_eq(neq, lam, fix_first), None, None
     knots_new = M.update_knots(knots, x1, fix_first)
     gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, neq)
-    return knots_new, gx_new, gy_new
+    return knots_new, gx_new, gy_new, cg_it, cg_err
+
+
+def lm_state_dict(sched, knots, Gx, Gy) -> dict:
+    """Mid-window LM checkpoint payload: the accepted (knots, Gx, Gy) as
+    numpy arrays and the schedule state (lambda, cost_min, tol-sat counter,
+    iteration, re-form flag) as Python scalars. The payload has the keys
+    and types of ``emba_tpu.solver.lm_state_dict``, so either package
+    resumes from the other's (``convert.lm_state_to_numpy``)."""
+    return dict(
+        knots=knots.detach().cpu().numpy(),
+        gx=Gx.detach().cpu().numpy(),
+        gy=Gy.detach().cpu().numpy(),
+        lam=float(sched.lam),
+        cost_min=float(sched.cost_min),
+        count_tol_sat=int(sched.count_tol_sat),
+        it=int(sched.it),
+        cost_decreased=bool(sched.cost_decreased),
+    )
 
 
 def solve_window(
@@ -115,18 +146,22 @@ def solve_window(
     Args:
       knots: (K, 3, 3) tensor of control poses; Gx, Gy: (H, W) maps, on the
         device of ``dev_win``.
+      use_cg: solve each damped system by block-Jacobi CG
+        (:func:`model.solve_normal_eq_cg`) instead of the Schur complement;
+        each iteration record then has ``cg_iterations`` and ``cg_error``.
       callback: optional fn(iter, Gx, Gy, info), called before each solve.
+      checkpoint_cb: optional fn(state_dict), called every
+        ``checkpoint_every`` iterations with :func:`lm_state_dict`.
+      resume_state: an :func:`lm_state_dict` payload (of this package or of
+        ``emba_tpu``) to resume from. Every LM decision depends only on the
+        restored state and schedule, and forming is deterministic, so the
+        resumed run gives the bits of the uninterrupted one.
 
     Returns (knots, Gx, Gy, LMStats).
     """
-    if use_cg:
-        raise NotImplementedError("use_cg: not ported yet, see ROADMAP queue 1 item 10")
-    if checkpoint_cb is not None or checkpoint_every or resume_state is not None:
-        raise NotImplementedError(
-            "checkpoint/resume (lm_state_dict): not ported yet, see ROADMAP queue 1 item 7"
-        )
     num_knots = knots.shape[0]
     device = Gx.device
+    dt = Gx.dtype
     stats = LMStats(num_events=int(dev_win.pol_signed.shape[0]))
     sched = lm_mod.HostSchedule(
         tol_fun=lm.tol_fun,
@@ -136,16 +171,33 @@ def solve_window(
         lambda_min=lm.lambda_min,
         lambda_max=lm.lambda_max,
     )
+    if resume_state is not None:
+        from . import convert
+
+        resume_state = convert.lm_state_to_numpy(resume_state)
+        knots, Gx, Gy = convert.state_from_numpy(
+            resume_state["knots"], resume_state["gx"], resume_state["gy"], dt, device)
+        sched.lam = resume_state["lam"]
+        sched.count_tol_sat = resume_state["count_tol_sat"]
+        sched.it = resume_state["it"]
+        sched.cost_decreased = resume_state["cost_decreased"]
 
     t_loop0 = time.perf_counter()
     lin, cost_data_t, cost_reg_t = _init_costs(knots, Gx, Gy, dev_win, cfg)
     cost_data, cost_reg = float(cost_data_t), float(cost_reg_t)
     stats.time_objective_s += time.perf_counter() - t_loop0
     stats.count_objective += 1
-    sched.start(cost_data + cost_reg)
+    if resume_state is None:
+        sched.start(cost_data + cost_reg)
+    else:
+        # the stored scalar is the source of truth (it equals the cost at
+        # the restored state)
+        sched.cost_min = resume_state["cost_min"]
 
     neq = None
     while sched.running():
+        # on resume the system is formed once even if the interrupted run's
+        # last step was a reject: forming is deterministic in the state
         if sched.cost_decreased or neq is None:
             t0 = time.perf_counter()
             neq = M.form_normal_eq(lin, Gx, Gy, cfg, num_knots)
@@ -160,8 +212,8 @@ def solve_window(
             callback(sched.it, Gx, Gy, dict(lam=sched.lam, cost_min=sched.cost_min))
 
         t0 = time.perf_counter()
-        knots_new, gx_new, gy_new = _solve_update(
-            knots, Gx, Gy, neq, sched.lam, damping_factor, fix_first
+        knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(
+            knots, Gx, Gy, neq, sched.lam, damping_factor, fix_first, use_cg
         )
         _sync(device)
         t1 = time.perf_counter()
@@ -177,14 +229,18 @@ def solve_window(
         stats.count_objective += 1
         cost_new = cost_data_new + cost_reg_new
 
-        stats.iterations.append(dict(
+        rec = dict(
             iter=sched.it + 1,
             log10_lambda=np.log10(sched.lam),
             cost_min=sched.cost_min,
             cost_new=cost_new,
             cost_data=cost_data,
             cost_reg=cost_reg,
-        ))
+        )
+        if use_cg:
+            rec["cg_iterations"] = int(cg_it)
+            rec["cg_error"] = float(cg_err)
+        stats.iterations.append(rec)
 
         if sched.step(cost_new):
             knots, Gx, Gy = knots_new, gx_new, gy_new
@@ -194,5 +250,127 @@ def solve_window(
                 stats.converged = True
                 break
 
+        if checkpoint_cb is not None and checkpoint_every > 0 and (
+                sched.it % checkpoint_every == 0):
+            checkpoint_cb(lm_state_dict(sched, knots, Gx, Gy))
+
     stats.time_total_s = time.perf_counter() - t_loop0
     return knots, Gx, Gy, stats
+
+
+def _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
+                   early_exit, cg_rec):
+    """The callables of :func:`lm.lm_while` for one window. With
+    ``use_cg``, each solve writes its CG iterations and relative residual
+    into ``cg_rec`` (2,)."""
+
+    def objective(knots_, gx_, gy_):
+        lin = M.linearize(knots_, gx_, gy_, dev_win, cfg)
+        return M.data_cost(lin.e, cfg) + M.reg_cost(gx_, gy_, cfg.alpha), lin
+
+    def form(lin, knots_, gx_, gy_):
+        return M.form_normal_eq(lin, gx_, gy_, cfg, num_knots)
+
+    def solve_update(neq, knots_, gx_, gy_, lam):
+        knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(
+            knots_, gx_, gy_, neq, lam, damping, fix_first, use_cg, early_exit)
+        if use_cg:
+            cg_rec.copy_(torch.stack([cg_it.to(cg_rec.dtype), cg_err.to(cg_rec.dtype)]))
+        return knots_new, gx_new, gy_new
+
+    return dict(objective=objective, form=form, solve_update=solve_update,
+                sys_stats=lambda neq: (neq.active_count, neq.dropped))
+
+
+# The graphed loop of the last solve_window_fused call on CUDA, under a key
+# of everything its graphs hold fixed; a call with the same key loads its
+# window and start state into the graphs' buffers and replays them, as a
+# jit cache reruns a compiled program. One entry: a new key drops the old
+# graphs before it captures its own.
+_GRAPHED: dict = {}
+
+
+def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
+                    fix_first, use_cg, max_num_iter, num_times_tol_fun_sat):
+    """The cached (:class:`lm.GraphedLoop`, CG record) of this call's key,
+    with ``dev_win`` loaded into the window its graphs read."""
+    tensors = {f.name: getattr(dev_win, f.name) for f in dataclasses.fields(dev_win)
+               if getattr(dev_win, f.name) is not None}
+    key = (tuple((name, tuple(t.shape), t.dtype) for name, t in tensors.items()),
+           tuple(knots.shape), tuple(Gx.shape), Gx.dtype, Gx.device, cfg, damping,
+           tol_fun, fix_first, use_cg, max_num_iter, num_times_tol_fun_sat)
+    hit = _GRAPHED.get(key)
+    if hit is not None:
+        win, cg_rec, loop = hit
+        for name, t in tensors.items():
+            getattr(win, name).copy_(t)
+        return loop, cg_rec
+    _GRAPHED.clear()
+    torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
+    win =dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
+    cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
+    loop = lm_mod.GraphedLoop(
+        knots, Gx, Gy,
+        **_window_phases(win, cfg, num_knots, damping, fix_first, use_cg, False, cg_rec),
+        tol_fun=tol_fun, max_num_iter=max_num_iter,
+        num_times_tol_fun_sat=num_times_tol_fun_sat)
+    _GRAPHED[key] = (win, cg_rec, loop)
+    return loop, cg_rec
+
+
+def solve_window_fused(
+    knots,
+    Gx,
+    Gy,
+    dev_win: M.DeviceWindow,
+    cfg: M.ModelConfig,
+    damping,
+    tol_fun,
+    fix_first: bool = False,
+    use_cg: bool = False,
+    max_num_iter: int = 50,
+    num_times_tol_fun_sat: int = 2,
+    return_trace: bool = False,
+    stats: lm_mod.LoopStats | None = None,
+):
+    """The whole LM window as one loop over device state (counterpart of
+    ``emba_tpu.solver.solve_window_fused``, classic mode): the control flow
+    of :func:`solve_window` with the schedule held in device tensors, and
+    the reference's fixed schedule constants (``lm.LAMBDA_*``).
+
+    On the CPU it runs :func:`lm.lm_while` eagerly. On CUDA it runs an
+    :class:`lm.GraphedLoop`: each phase is captured once in a CUDA graph
+    and replayed; a capture that fails raises. The loop is kept for the next
+    call with the same window shapes and settings, which then pays no
+    warm-up and no capture (``stats.setup_s`` is 0). ``stats``, if given,
+    receives the loop wall time, the forming passes and replays, and with
+    ``use_cg`` the CG iterations and relative residual of each solve.
+
+    Returns (knots, Gx, Gy, cost_min, iterations_used, converged) [+ the
+    per-iteration trace when ``return_trace``, see ``lm.TRACE_COLS``].
+    """
+    num_knots = knots.shape[0]
+    damping = float(damping)
+    tol_fun = float(tol_fun)
+    sched = dict(tol_fun=tol_fun, max_num_iter=max_num_iter,
+                 num_times_tol_fun_sat=num_times_tol_fun_sat)
+    if Gx.device.type == "cuda":
+        loop, cg_rec = _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping,
+                                       fix_first=fix_first, use_cg=use_cg, **sched)
+        run = loop.run
+    else:
+        cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
+        phases = _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
+                                True, cg_rec)
+
+        def run(knots, Gx, Gy, **kw):
+            return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched, **kw)
+
+    def on_step():
+        it, err = cg_rec.tolist()
+        stats.cg_iterations.append(int(it))
+        stats.cg_error.append(err)
+
+    out = run(knots, Gx, Gy, on_step=on_step if (use_cg and stats is not None) else None,
+              stats=stats)
+    return out if return_trace else out[:6]

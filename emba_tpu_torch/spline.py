@@ -9,6 +9,7 @@ as in the reference, copied here because the reference module imports JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -36,6 +37,15 @@ def blending_matrix(order: int, cumulative: bool = True) -> np.ndarray:
     return m / math.factorial(n - 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _blend(order: int, dtype, device):
+    """The cumulative blending matrix on the device, copied there once: a
+    host-to-device copy inside :func:`evaluate` would synchronize, and
+    could not be captured in a CUDA graph."""
+    return torch.as_tensor(blending_matrix(order, cumulative=True), dtype=dtype,
+                           device=device)
+
+
 def evaluate(knots, s, u, order: int, need_jacobian: bool = True):
     """Evaluate the cumulative SO(3) B-spline at query points.
 
@@ -55,8 +65,7 @@ def evaluate(knots, s, u, order: int, need_jacobian: bool = True):
     s = torch.as_tensor(s, device=device).long()
 
     n = order
-    blend = torch.as_tensor(blending_matrix(n, cumulative=True), dtype=dtype,
-                            device=device)
+    blend = _blend(n, dtype, device)
     powers = torch.stack([u**i for i in range(n)], dim=-1)  # (Q, N)
     coeff = powers @ blend.T  # (Q, N)
 

@@ -1,20 +1,31 @@
-"""The CUDA A12 accumulation kernel against its plain torch version, on
-the card. Every test here is marked ``cuda`` and skips without a GPU.
+"""The port on the card: the CUDA kernels against their plain torch
+versions, a kernel launch inside a CUDA graph, and the fused window on CUDA
+graphs against the host loop. Every test here is marked ``cuda`` and skips
+without a GPU.
 
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Tolerance: relative 1e-5 of each output's largest magnitude, because both
-sides sum in f32 in different orders; repeated kernel runs must agree bit
-for bit.
+Tolerances: the A12 kernel to relative 1e-5 of each output's largest
+magnitude and the gather kernel to 1e-6 of each row's sum of magnitudes,
+because both sides sum in f32 in different orders; repeated kernel runs
+must agree bit for bit. The fused window's final cost to relative 1e-5 of
+the host loop's (lambda and the cost sum are f32 on the device, f64 on the
+host).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from emba_tpu_torch import kernels, lm, solver, spline, synth
+from emba_tpu_torch.pairing import build_window
+from emba_tpu_torch import model as TM
 from emba_tpu_torch.kernels import a12_accum as TK
+from emba_tpu_torch.kernels import gather_sum as TG
 
 
 def make_inputs(rng, n, hw, knots, order, device):
@@ -90,3 +101,124 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
     strided[3] = torch.empty((10, 6), device=cuda_device).T
     with pytest.raises(ValueError, match="contiguous"):
         TK.a12_accumulate(*strided, 256, 15, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_row_offsets_match_bincount(cuda_device):
+    rng = np.random.default_rng(4)
+    r_pad = 1024
+    pix = np.concatenate([rng.integers(0, 300, 5000), rng.integers(r_pad, 2 * r_pad, 50)])
+    pm = torch.as_tensor(pix.astype(np.int32), device=cuda_device)
+    order, off = TK.row_offsets(pm, r_pad)
+    counts = torch.bincount(pm.long(), minlength=2 * r_pad)[:r_pad]
+    want = torch.zeros(r_pad + 1, dtype=torch.int64, device=cuda_device)
+    want[1:] = torch.cumsum(counts, 0)
+    assert off.dtype == torch.int32 and torch.equal(off.long(), want)
+    assert torch.equal(order.long(), torch.sort(pm, stable=True).indices)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_launch_captured_in_a_graph(cuda_device):
+    """The kernel's ctypes launch goes to the capture stream: a replay of the
+    captured call gives the eager call's bits, and counts one launch."""
+    rng = np.random.default_rng(8)
+    hw, knots, dim = 4096, 20, 60
+    args = make_inputs(rng, 40_000, hw, knots, 2, cuda_device)
+    want = TK.a12_accumulate(*args, hw, dim, 2)
+    torch.cuda.synchronize()
+    phase = lm.CapturedPhase(lambda: TK.a12_accumulate(*args, hw, dim, 2))
+    assert phase.launches == {"a12_accum": 1}
+    before = TK.launches
+    phase.replay()
+    torch.cuda.synchronize()
+    assert TK.launches == before + 1
+    for x, y in zip(phase.out, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16])
+def test_cuda_gather_kernel_matches_plain(cuda_device, rows):
+    rng = np.random.default_rng(rows)
+    n = 50_000
+    payload = torch.as_tensor(rng.standard_normal((rows, n)), dtype=torch.float32,
+                              device=cuda_device)
+    perm = rng.permutation(n)[:n // TG.MC * TG.MC].reshape(-1, TG.MC)
+    idx = torch.as_tensor(perm.astype(np.int32), device=cuda_device)
+    cols = payload.double()[:, idx.reshape(-1).long()]
+    want, scale = cols.sum(1, keepdim=True), cols.abs().sum(1, keepdim=True)
+    for serial in (False, True):
+        before = TG.launches
+        got = TG.gather_sum(payload, idx, serial)
+        again = TG.gather_sum(payload, idx, serial)
+        assert TG.launches == before + 2
+        assert got.shape == (rows, 1) and torch.equal(got, again)
+        assert torch.max((got.double() - want).abs() / scale) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_gather_kernel_rejects_what_it_cannot_take(cuda_device):
+    payload = torch.zeros((4, 100), device=cuda_device)
+    idx = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        TG.gather_sum(payload.double(), idx, False)
+    with pytest.raises(ValueError, match="int32"):
+        TG.gather_sum(payload, idx.long(), False)
+    with pytest.raises(IndexError):
+        TG.gather_sum(payload, idx + 100, True)
+    with pytest.raises(ValueError, match="device"):
+        TG.gather_sum(payload, idx.cpu(), True)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_window_follows_host_loop(cuda_device):
+    """solve_window_fused on CUDA graphs against the host loop on the card:
+    same iterations and accepts, final cost to 1e-5, one kernel launch per
+    forming pass, the host loop's forming passes replayed; a second call
+    reuses the graphs and gives the same bits."""
+    sensor = synth.default_sensor(48, 48, f=44.0)
+    rng = np.random.default_rng(42)
+    B = synth.smooth_random_map(96, 192, rng, smooth=3, amp=3.0)
+    scene = synth.generate(rng, sensor, pano_width=192, pano_height=96, c_th=0.1,
+                           t_end=1.0, dt_knots=0.05, num_steps=600, motion_amp=0.25,
+                           brightness=B)
+    cfg = TM.ModelConfig(c_th=0.1, pano_width=192, pano_height=96,
+                         thres_valid_pixel=3, alpha=0.5, outlier_dp_norm=3.0)
+    steps = np.random.default_rng(7).normal(size=(scene.traj.num_knots, 3)) * 0.015
+    walk = np.cumsum(steps, axis=0)
+    walk -= walk[0]
+    traj0 = dataclasses.replace(scene.traj, knots=spline._np_exp(walk) @ scene.traj.knots)
+    win = build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width, traj0.locate,
+                       100)
+    dev = TM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                      torch.float32, cuda_device)
+    start = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+             for a in (traj0.knots, scene.gx, scene.gy)]
+    _k, _gx, _gy, st = solver.solve_window(
+        *start, dev, cfg, solver.LMConfig(max_num_iter=8, tol_fun=0.0), fix_first=True)
+    stats = lm.LoopStats()
+    kernels.reset_launch_counts()
+    k, gx, gy, cost, it, conv, trace = solver.solve_window_fused(
+        *start, dev, cfg, 1.0, 0.0, fix_first=True, max_num_iter=8, return_trace=True,
+        stats=stats)
+    torch.cuda.synchronize()
+    recs = lm.trace_records(trace.double().cpu().numpy(), int(it))
+    assert int(it) == len(st.iterations)
+    assert [r["accepted"] for r in recs] == [
+        r["cost_new"] < r["cost_min"] for r in st.iterations]
+    host_cost = min([r["cost_min"] for r in st.iterations]
+                    + [r["cost_new"] for r in st.iterations])
+    assert abs(float(cost) - host_cost) <= 1e-5 * abs(host_cost)
+    assert kernels.launch_counts()["a12_accum"] == stats.form_passes
+    assert stats.replays["form"] == st.count_form
+    assert all(torch.isfinite(t).all() for t in (k, gx, gy))
+    # a second call reuses the captured graphs: no set-up, the same bits
+    again = lm.LoopStats()
+    kernels.reset_launch_counts()
+    out = solver.solve_window_fused(
+        *start, dev, cfg, 1.0, 0.0, fix_first=True, max_num_iter=8, return_trace=True,
+        stats=again)
+    torch.cuda.synchronize()
+    assert again.setup_s == 0.0 and again.form_passes == stats.form_passes - 1
+    assert kernels.launch_counts()["a12_accum"] == again.form_passes
+    assert all(torch.equal(a, b) for a, b in zip(out, (k, gx, gy, cost, it, conv, trace)))

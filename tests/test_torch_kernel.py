@@ -79,6 +79,29 @@ def test_plain_carry_chain_matches_pallas_kernel():
     assert_rel(unpadded(chained, hw, dim), unpadded(want, hw, dim), 1e-4)
 
 
+@pytest.mark.parametrize("case", ["spread", "empty rows and rows past r_pad", "none"])
+def test_row_offsets_match_bincount(case):
+    """The kernel's prepass offsets (binary search over the sorted rows) are
+    the offsets of bincount + cumsum, exactly; rows >= r_pad fall past the
+    last offset and rows with no measurement give empty runs."""
+    rng = np.random.default_rng(6)
+    r_pad = 512
+    pix = {"spread": rng.integers(0, r_pad, 3000),
+           "empty rows and rows past r_pad": np.concatenate([
+               rng.integers(100, 140, 2000), rng.integers(r_pad, 3 * r_pad, 300),
+               np.full(50, r_pad - 1)]),
+           "none": np.zeros(0, np.int64)}[case]
+    pm = torch.as_tensor(rng.permutation(pix).astype(np.int32))
+    order, off = TK.row_offsets(pm, r_pad)
+    counts = np.bincount(pm.numpy(), minlength=r_pad)[:r_pad]
+    want = np.concatenate([[0], np.cumsum(counts)])
+    assert off.dtype == torch.int32 and order.dtype == torch.int32
+    np.testing.assert_array_equal(off.numpy(), want)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(pm.numpy(), kind="stable"))
+    if case != "spread":
+        assert (np.diff(want) == 0).any()
+
+
 def test_plain_matches_loop_reference_f64():
     """Tiny N, a zero-weight measurement and a repeated pixel against the
     definition, summed measurement by measurement in f64."""

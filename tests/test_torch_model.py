@@ -146,6 +146,44 @@ def test_costs_and_gradients_match(case):
                        JM.irls_weights(jnp.asarray(e), jc)) <= 1e-12
 
 
+@pytest.mark.parametrize("fix_first", [False, True])
+def test_cg_solve_matches_jax(case, fix_first):
+    """Block-Jacobi CG at its defaults (100 iterations, tol 1e-6): the
+    iteration count of JAX's, the solution to 1e-8 of its largest
+    magnitude, the relative residual to 1e-6 of itself."""
+    _jl, _tl, jn, tn = _both(case)
+    hw = 128 * 64
+    jx1, jx2, jit, jerr = JM.solve_normal_eq_cg(jn, 1e-2, fix_first)
+    tx1, tx2, tit, terr = TM.solve_normal_eq_cg(tn, 1e-2, fix_first)
+    assert int(tit) == int(jit) and 0 < int(tit) <= 100
+    assert float(terr) <= 1e-6
+    assert abs(float(terr) - float(jerr)) <= 1e-6 * float(jerr)
+    assert rel_err(tx1, jx1) <= 1e-8
+    assert rel_err(tx2[:, :hw], np.asarray(jx2)[:, :hw]) <= 1e-8
+
+
+def test_cg_solve_agrees_with_schur(case):
+    """Mirror of tests/test_model.py::test_cg_solve_agrees_with_schur: CG
+    run to tol 1e-10 reaches the Schur solution (atol 1e-6, rtol 1e-4)."""
+    _jl, _tl, _jn, tn = _both(case)
+    x1s, x2s = TM.solve_normal_eq(tn, 1e-2)
+    x1c, x2c, _it, _err = TM.solve_normal_eq_cg(tn, 1e-2, max_iter=500, tol=1e-10)
+    np.testing.assert_allclose(x1c.numpy(), x1s.numpy(), atol=1e-6, rtol=1e-4)
+    np.testing.assert_allclose(x2c.numpy(), x2s.numpy(), atol=1e-6, rtol=1e-4)
+
+
+def test_cg_solve_without_host_reads_gives_the_same_bits(case):
+    """In a CUDA graph the CG loop runs all its iterations and freezes once
+    the test is met (``early_exit=False``): that loop, run here on the CPU,
+    gives the early-exit loop's solution and iteration count exactly."""
+    _jl, _tl, _jn, tn = _both(case)
+    want = TM.solve_normal_eq_cg(tn, 1e-2, True)
+    got = TM.solve_normal_eq_cg(tn, 1e-2, True, early_exit=False)
+    assert int(want[2]) < 100
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("field", ["compact_cap", "stream_chunk", "light_trial",
                                    "stream_light"])
 def test_unported_config_fields_raise(field):

@@ -97,12 +97,38 @@ def test_solve_window_matches(scenes):
         jmetrics.trajectory_rmse_deg(tA, tt, R_gt), rel=1e-10)
 
 
-def test_unported_solver_options_raise():
+def test_unported_solver_options_raise(scenes):
+    """The solver options still to port raise (the light trial step, the
+    streamed tier's re-form at the top of each iteration); ``use_cg`` and
+    ``resume_state`` run, and a resume from the start equals a fresh run."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.solve_window(None, torch.zeros(1), None, None, None, use_cg=True)
+        TM.ModelConfig(**CFG, light_trial=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.solve_window(None, torch.zeros(1), None, None, None,
-                        resume_state={"it": 0})
+        lm.lm_while(None, None, None, objective=None, form=None, solve_update=None,
+                    tol_fun=1e-3, max_num_iter=1, num_times_tol_fun_sat=2,
+                    carry_aux=True)
+
+    sensor, scene, _t = scenes
+    win = pairing.build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width,
+                               scene.traj.locate, 100)
+    dev = TM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                      torch.float64, "cpu")
+    start = convert.state_from_numpy(scene.traj.knots, scene.gx * 0.9, scene.gy * 0.9,
+                                     torch.float64, "cpu")
+    cfg, lmc = TM.ModelConfig(**CFG), TS.LMConfig(max_num_iter=1)
+    k, _gx, _gy, st = TS.solve_window(*start, dev, cfg, lmc, use_cg=True)
+    assert torch.isfinite(k).all() and len(st.iterations) == 2
+    assert all(0 < r["cg_iterations"] <= 100 and r["cg_error"] <= 1e-6
+               for r in st.iterations)
+
+    fresh = TS.solve_window(*start, dev, cfg, lmc)
+    sched = lm.HostSchedule(tol_fun=lmc.tol_fun, max_num_iter=lmc.max_num_iter,
+                            num_times_tol_fun_sat=lmc.num_times_tol_fun_sat)
+    sched.start(fresh[3].iterations[0]["cost_min"])
+    resumed = TS.solve_window(*start, dev, cfg, lmc,
+                              resume_state=TS.lm_state_dict(sched, *start))
+    for a, b in zip(resumed[:3], fresh[:3]):
+        assert torch.equal(a, b)
 
 
 def test_host_schedule_and_trace_decoders():
