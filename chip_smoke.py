@@ -20,7 +20,9 @@ Phases, each reporting on its own lines:
    plain CPU path in f64;
 7. main path, host loop: one LM window of 2,000,000 events on a 1024x512
    panorama with a 97-knot order-2 spline (the problem of ``bench.py``),
-   ``LMConfig(max_num_iter=8, tol_fun=0)`` (9 trial steps);
+   ``LMConfig(max_num_iter=8, tol_fun=0)`` (9 trial steps); then the A12
+   kernel on that window's own linearization at the start state against
+   its plain version, with the window's row and key occupancy;
 8. main path, fused: the same window through ``solve_window_fused`` (CUDA
    graphs) with ``bench.py``'s settings (damping 1, ``tol_fun`` 0), twice:
    the first call captures the graphs, the second reuses them and must
@@ -32,7 +34,12 @@ Phases, each reporting on its own lines:
    bit for bit;
 10. CG: the fused window with ``use_cg=True`` lowers the cost.
 
-The line before the last is the kernel report ``{"kernels": [...]}``; the
+Each kernel line gives its time beside its bound, the least time the card
+could take (``a12_bound``: bytes at 3.35 TB/s or f32 operations at 67
+TFLOP/s, whichever is longer). The line before the last is the kernel
+report ``{"kernels": [...]}``: a kernel's ``ms`` is its eager wrapper call
+(for A12 on the synthetic main-shape case), and A12 adds its CUDA-graph
+replay and the main window's case as further keys; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line. There is no CPU path: without a CUDA
 device the script exits with code 2.
@@ -65,35 +72,37 @@ GATHER_REL_TOL = 1e-6
 # a few steps, which moves the trial states by rounding only.
 FUSED_COST_REL_TOL = 1e-5
 MAIN_ITERS = 8  # LM max_num_iter of the main window, as bench.py sets it
+# Published peaks of one NVIDIA H100 SXM at its 700 W limit (data sheet):
+# device memory rate and f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def _bound(nbytes, flops):
+    """(least ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def a12_bound(n, num_pix, dim_pose, order, carry=False):
+    """Bound of one a12_accumulate call: A12, px5 and a11b written once (and
+    read once under ``carry``), 3 int32 + 2D + 4 f32 read per measurement;
+    D multiply-adds per A12 plane and half, 5 px5 terms and the (2D+1)^2 / 2
+    cells of A11/b1 a measurement."""
+    from emba_tpu_torch.kernels.a12_accum import padded_dims
+
+    d = 3 * order
+    r_pad, dp_pad = padded_dims(num_pix, dim_pose)
+    out = 4 * (r_pad * 2 * dp_pad + r_pad * 8 + (dp_pad + 8) * dp_pad)
+    out *= 2 if carry else 1
+    inputs = 4 * n * (3 + 2 * d + 4)
+    flops = n * (2 * 4 * d + 2 * 5 + (2 * d + 1) * (2 * d + 2))
+    return _bound(out + inputs, flops)
 
 
 def _require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def _kernel_inputs(rng, n, hw, knots, order, device, pix=None, zero_w=False):
-    import torch
-
-    d = 3 * order
-    i_c = rng.integers(0, knots - order + 1, n)
-    # prev segments at and before the curr one (as in an event stream),
-    # with some far back
-    i_p = np.clip(i_c - rng.integers(0, 3, n) * (rng.random(n) < 0.8)
-                  - rng.integers(0, knots, n) * (rng.random(n) >= 0.8), 0, None)
-    w = rng.uniform(0.0, 1.0, n)
-    w[rng.random(n) < 0.3] = 0.0
-    if zero_w:
-        w[:] = 0.0
-    host = [
-        rng.integers(0, hw, n) if pix is None else pix,
-        i_c, i_p,
-        rng.normal(size=(d, n)), rng.normal(size=(d, n)),
-        rng.normal(size=n), rng.normal(size=n), rng.normal(size=n), w,
-    ]
-    types = [torch.int32] * 3 + [torch.float32] * 6
-    return [torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=t)
-            for a, t in zip(host, types)]
 
 
 def _outputs(out, num_pix, dim_pose):
@@ -109,12 +118,27 @@ def _outputs(out, num_pix, dim_pose):
     }
 
 
-def check_kernel_case(name, args, num_pix, knots, order, carry_args=None):
-    """Kernel vs plain version on the same GPU tensors. Returns the
-    case's (max_abs_err, kernel_ms, plain_ms)."""
+def _rel(got, want):
+    """max |got - want| over max |want| (the absolute error if want is 0)."""
     import torch
 
-    from emba_tpu_torch.device import cuda_time_ms
+    if not want.numel():
+        return 0.0
+    err = float(torch.max(torch.abs(got.double() - want.double())))
+    mag = float(torch.max(torch.abs(want)))
+    return err / mag if mag > 0 else err
+
+
+def check_kernel_case(name, args, num_pix, knots, order, carry_args=None,
+                      exact=False, graphed=False):
+    """Kernel vs plain version on the same GPU tensors. With ``exact``, both
+    are also held against the plain version in f64 (printed); with
+    ``graphed``, the call is also timed as a CUDA graph replay. Returns the
+    case's (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by, graph_ms
+    or None)."""
+    import torch
+
+    from emba_tpu_torch.device import cuda_time_ms, graph_time_ms
     from emba_tpu_torch.kernels import a12_accum as K
 
     dim_pose = 3 * knots
@@ -138,13 +162,22 @@ def check_kernel_case(name, args, num_pix, knots, order, carry_args=None):
         _require(torch.equal(x, y), f"{name}: repeated kernel runs differ")
     want = plain()
     torch.cuda.synchronize()
+    g, w = _outputs(got, num_pix, dim_pose), _outputs(want, num_pix, dim_pose)
+    if exact:
+        # the plain version on the same values in f64: which side errs
+        ref = K.a12_accumulate_plain(
+            *[a.double() if a.is_floating_point() else a for a in args],
+            num_pix, dim_pose, order)
+        r = _outputs(ref, num_pix, dim_pose)
+        print(f"kernel {name}: against the plain version in f64: " + "; ".join(
+            f"{key} kernel {_rel(g[key], r[key]):.3e} plain {_rel(w[key], r[key]):.3e}"
+            for key in g), flush=True)
+        del ref, r
     max_abs = 0.0
     parts = []
-    g, w = _outputs(got, num_pix, dim_pose), _outputs(want, num_pix, dim_pose)
     for key in g:
         err = float(torch.max(torch.abs(g[key] - w[key]))) if g[key].numel() else 0.0
-        mag = float(torch.max(torch.abs(w[key]))) if w[key].numel() else 0.0
-        rel = err / mag if mag > 0 else err
+        rel = _rel(g[key], w[key])
         _require(torch.isfinite(g[key]).all().item(), f"{name}: {key} not finite")
         _require(rel <= KERNEL_REL_TOL,
                  f"{name}: {key} rel err {rel:.3e} > {KERNEL_REL_TOL:.0e}")
@@ -152,38 +185,51 @@ def check_kernel_case(name, args, num_pix, knots, order, carry_args=None):
         max_abs = max(max_abs, err)
     del got, again, want
     k_ms = cuda_time_ms(kernel)
+    g_ms = graph_time_ms(kernel) if graphed else None
     p_ms = cuda_time_ms(plain)
     torch.cuda.empty_cache()
+    b_ms, b_by = a12_bound(args[0].shape[0], num_pix, dim_pose, order,
+                           carry=carry_args is not None)
+    if carry_args is not None:  # the chain's first call
+        b_ms += a12_bound(carry_args[0].shape[0], num_pix, dim_pose, order)[0]
     print(f"kernel {name}: bitwise-repeatable; " + "; ".join(parts)
-          + f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-    return max_abs, k_ms, p_ms
+          + f"; kernel {k_ms:.3f} ms eager" + ("" if g_ms is None else
+                                                 f", {g_ms:.3f} ms graph replay")
+          + f", plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), share of bound "
+          f"{b_ms / k_ms:.3f} eager" + ("" if g_ms is None else
+                                        f", {b_ms / g_ms:.3f} graph replay"),
+          flush=True)
+    return max_abs, k_ms, p_ms, b_ms, b_by, g_ms
 
 
 def phase_kernels(device):
     """Every listed case; returns the main-shape case's numbers."""
+    from emba_tpu_torch.probes.a12_parts import synthetic_inputs
+
     rng = np.random.default_rng(1234)
     hw, knots = 1024 * 512, 97
     main = check_kernel_case(
         "main N=2000000 HW=524288 K=97 order=2",
-        _kernel_inputs(rng, 2_000_000, hw, knots, 2, device), hw, knots, 2)
+        synthetic_inputs(rng, 2_000_000, hw, knots, 2, device), hw, knots, 2,
+        exact=True, graphed=True)
     check_kernel_case(
-        "order4 N=500000", _kernel_inputs(rng, 500_000, hw, knots, 4, device),
+        "order4 N=500000", synthetic_inputs(rng, 500_000, hw, knots, 4, device),
         hw, knots, 4)
-    check_kernel_case("N=1", _kernel_inputs(rng, 1, hw, knots, 2, device),
+    check_kernel_case("N=1", synthetic_inputs(rng, 1, hw, knots, 2, device),
                       hw, knots, 2)
     check_kernel_case(
         "all-zero weights",
-        _kernel_inputs(rng, 100_000, hw, knots, 2, device, zero_w=True),
+        synthetic_inputs(rng, 100_000, hw, knots, 2, device, zero_w=True),
         hw, knots, 2)
     pix = rng.integers(0, hw, 100_000)
     pix[rng.permutation(100_000)[:10_000]] = 77_777
     check_kernel_case(
         "one row with 10^4 measurements",
-        _kernel_inputs(rng, 100_000, hw, knots, 2, device, pix=pix), hw, knots, 2)
+        synthetic_inputs(rng, 100_000, hw, knots, 2, device, pix=pix), hw, knots, 2)
     check_kernel_case(
         "carry chain (2 calls vs 1 concatenated)",
-        _kernel_inputs(rng, 700_000, hw, knots, 2, device), hw, knots, 2,
-        carry_args=_kernel_inputs(rng, 1_300_000, hw, knots, 2, device))
+        synthetic_inputs(rng, 700_000, hw, knots, 2, device), hw, knots, 2,
+        carry_args=synthetic_inputs(rng, 1_300_000, hw, knots, 2, device))
     return main
 
 
@@ -228,10 +274,11 @@ def check_gather_case(name, payload, idx, timed=False):
 
 
 def phase_gather(device):
-    """Every gather case; returns (max abs err, R=16 batched kernel ms,
-    its plain ms)."""
+    """Every gather case; returns (max abs err, R=16 batched kernel ms, its
+    plain ms, bound ms, bound kind, index_select + sum ms)."""
     import torch
 
+    from emba_tpu_torch.device import cuda_time_ms
     from emba_tpu_torch.kernels.gather_sum import MC
 
     rng = np.random.default_rng(5)
@@ -248,8 +295,16 @@ def phase_gather(device):
         err, times = check_gather_case(f"R={rows} N={n} chunks={n // MC}", payload,
                                        idx, timed=True)
         max_abs = max(max_abs, err)
+        # payload columns and ids read once, (R, 1) written; R adds a column
+        cols = idx.numel()
+        b_ms, b_by = _bound(4 * (rows * cols + cols + rows), rows * cols)
+        src = idx.reshape(-1).long()
+        lib_ms = cuda_time_ms(lambda: payload.index_select(1, src).sum(dim=1, keepdim=True))
+        print(f"gather R={rows}: bound {b_ms:.4f} ms ({b_by}), index_select + sum "
+              f"{lib_ms:.3f} ms, batched kernel share of bound "
+              f"{b_ms / times['batched'][0]:.3f}", flush=True)
         if rows == 16:
-            main_times = times["batched"]
+            main_times = (*times["batched"], b_ms, b_by, lib_ms)
     edge = [
         ("one chunk", payload, idx[:1].contiguous()),
         ("repeated ids", payload, gpu(rng.integers(0, 64, (40, MC)), torch.int32)),
@@ -258,7 +313,7 @@ def phase_gather(device):
     ]
     for name, p_, i_ in edge:
         max_abs = max(max_abs, check_gather_case(name, p_, i_)[0])
-    return max_abs, main_times[0], main_times[1]
+    return (max_abs, *main_times)
 
 
 def phase_probe():
@@ -336,6 +391,7 @@ def phase_main(device):
     import torch
 
     from emba_tpu_torch import kernels, metrics, solver
+    from emba_tpu_torch.device import cuda_mallocs
     from emba_tpu_torch.probes.profile_fused import main_window
 
     t0 = time.perf_counter()
@@ -354,9 +410,11 @@ def phase_main(device):
                         fix_first=True)
     peaks = _reset_peak_memory()
     kernels.reset_launch_counts()
+    mallocs = cuda_mallocs()
     knots, Gx, Gy, st = solver.solve_window(knots0, Gx0, Gy0, dev, cfg, lm,
                                             fix_first=True)
     torch.cuda.synchronize()
+    mallocs = cuda_mallocs() - mallocs
     launches = kernels.launch_counts()["a12_accum"]
     peak = peaks()
 
@@ -383,11 +441,46 @@ def phase_main(device):
         [[r["cost_min"], r["cost_new"]] for r in st.iterations]), flush=True)
     print(f"main: rotation RMSE vs GT {metrics.trajectory_rmse_deg(traj0, tt, R_gt):.4f}"
           f" -> {metrics.trajectory_rmse_deg(traj1, tt, R_gt):.4f} deg", flush=True)
-    print(f"main: peak device memory {peak}", flush=True)
+    print(f"main: peak device memory {peak}; cudaMalloc calls in the loop {mallocs} "
+          "(the allocator's cache was emptied before it)", flush=True)
+    # the same loop again with the allocator's cache full: the phases
+    # without the driver's allocations
+    mallocs = cuda_mallocs()
+    warm = solver.solve_window(knots0, Gx0, Gy0, dev, cfg, lm, fix_first=True)[3]
+    torch.cuda.synchronize()
+    print(f"main: again, cache full: seconds form {warm.time_form_s:.4f} solve "
+          f"{warm.time_solve_s:.4f} objective {warm.time_objective_s:.4f} total "
+          f"{warm.time_total_s:.4f}; cudaMalloc calls {cuda_mallocs() - mallocs}",
+          flush=True)
     print(f"main: a12_accumulate launches {launches} == count_form {st.count_form}",
           flush=True)
     return dict(dev=dev, cfg=cfg, start=(knots0, Gx0, Gy0), lm=lm, n=n,
                 host=(knots, Gx, Gy, st))
+
+
+def phase_window_kernel(ctx):
+    """The A12 kernel on the main window's own linearization at the start
+    state (the first forming pass's inputs), against its plain version, and
+    the window's occupancy: rows with a weighted measurement, the largest
+    row, distinct (i_c, i_p) keys. Returns the case's numbers."""
+    import torch
+
+    from emba_tpu_torch.probes.a12_parts import forming_inputs
+
+    args, r_pad, knots, order = forming_inputs(ctx)
+    pm_pix, i_c, i_p, wA = args[0], args[1], args[2], args[8]
+    n = pm_pix.shape[0]
+    used = wA > 0
+    counts = torch.bincount(pm_pix[used].long(), minlength=r_pad)
+    keys = torch.unique(i_c[used].long() * knots + i_p[used].long())
+    back = (i_c[used] - i_p[used]).long()
+    print(f"window occupancy: {n} measurements, {int(used.sum())} with weight > 0; "
+          f"rows with >= 1 of them {int((counts > 0).sum())} of {r_pad}, largest row "
+          f"{int(counts.max())}; distinct (i_c, i_p) keys {keys.numel()} of "
+          f"{knots * knots}; i_c - i_p in [{int(back.min())}, {int(back.max())}]",
+          flush=True)
+    return check_kernel_case(f"real window N={n} K={knots} order={order}", args,
+                             r_pad, knots, order, exact=True, graphed=True)
 
 
 def _reset_peak_memory():
@@ -563,24 +656,37 @@ def main() -> int:
     print(f"build: {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    a12_err, a12_ms, a12_plain_ms = phase_kernels(device)
-    g_err, g_ms, g_plain_ms = phase_gather(device)
+    syn = phase_kernels(device)
+    g_err, g_ms, g_plain_ms, g_bound, g_by, g_lib = phase_gather(device)
     g_launches = phase_probe()
     phase_reference(device)
     ctx = phase_main(device)
+    win = phase_window_kernel(ctx)
     a12_launches = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
 
+    # the A12 "ms" is the eager wrapper call on the synthetic main-shape case,
+    # as in every earlier report; beside it the same call replayed from a
+    # CUDA graph (as the fused window runs it, without the host's dispatch of
+    # the wrapper's index maps) and both times on the main window's own inputs
     report = {"kernels": [{
         "name": "a12_accumulate",
         "route": "cuda",
         "source": "emba_tpu_torch/kernels/csrc/a12_accum.cu",
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
         "launches": a12_launches,
-        "max_abs_err": a12_err,
-        "ms": a12_ms,
-        "plain_ms": a12_plain_ms,
+        "max_abs_err": max(syn[0], win[0]),
+        "ms": syn[1],
+        "plain_ms": syn[2],
+        "bound_ms": syn[3],
+        "bound_by": syn[4],
+        "library_ms": None,
+        "graph_ms": syn[5],
+        "window_ms": win[1],
+        "window_graph_ms": win[5],
+        "window_plain_ms": win[2],
+        "window_bound_ms": win[3],
     }, {
         "name": "gather_sum",
         "route": "cuda",
@@ -590,6 +696,9 @@ def main() -> int:
         "max_abs_err": g_err,
         "ms": g_ms,
         "plain_ms": g_plain_ms,
+        "bound_ms": g_bound,
+        "bound_by": g_by,
+        "library_ms": g_lib,
     }]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

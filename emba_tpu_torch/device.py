@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -46,3 +47,41 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_mallocs() -> int:
+    """Segments the caching allocator has taken from the driver
+    (``cudaMalloc`` calls) in this process so far."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def host_time_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds the host spends in ``fn`` (its dispatch: the
+    call returns before its kernels end) over ``reps`` runs after one
+    warm-up, each started on an idle device."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def graph_time_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``reps`` replays of ``fn`` captured in a CUDA
+    graph (as the fused window runs its phases: no host work between the
+    kernels), after a warm-up off the capturing stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_time_ms(graph.replay, reps)
+    del graph
+    return ms

@@ -8,6 +8,13 @@ on a CPU tensor it runs :func:`a12_accumulate_plain`, the plain torch
 version (counterpart of ``emba_tpu.model._xla_accumulate``). There is no
 fallback: a CUDA input the kernel cannot take raises.
 
+Around the CUDA kernels the wrapper builds the index maps in torch, with no
+size read on the host, so that a CUDA graph can capture the call: the stable
+sorts of the row and knot-pair keys with their run offsets
+(:func:`sorted_runs`), the inverse permutations that give each measurement
+its record slots (:func:`inverse_permutation`), and the chunk maps of heavy
+rows and knot-pair runs (:func:`chunk_map`, sized by :func:`chunk_bounds`).
+
 Layout: A12 is (R_pad, 2*dp_pad), columns [0:dp_pad) the Gx plane and
 [dp_pad:2*dp_pad) the Gy plane; px5 is (R_pad, 8) with columns 0..4 =
 a22_xx, a22_xy, a22_yy, b2_x, b2_y; a11b is (dp_pad + 8, dp_pad) with rows
@@ -17,14 +24,15 @@ a22_xx, a22_xy, a22_yy, b2_x, b2_y; a11b is (dp_pad + 8, dp_pad) with rows
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 ROW_ALIGN = 128  # R_pad = round_up(num_pix, ROW_ALIGN)
 DP_ALIGN = 32  # dp_pad = round_up(dim_pose, DP_ALIGN): 128-byte row segments
 CHUNK = 1 << 16  # measurements per step of the plain version
-A11_BLOCKS = 1024  # most private A11 partials of the kernel
-A11_MIN_PER_BLOCK = 256  # fewest measurements a partial covers
+HEAVY_ROW = 512  # a row with more measurements is cut into chunks this long
+PAIR_CHUNK = 512  # measurements of a knot-pair run one warp reduces for A11
 
 # Launches of the CUDA kernel in this process; a caller may reset it. A
 # CUDA graph that holds the launch adds one per replay (``lm.CapturedPhase``).
@@ -109,60 +117,146 @@ def check_inputs(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix: int,
     return n, r_pad, dp_pad
 
 
-def row_offsets(pm_pix, r_pad: int):
-    """The kernel's prepass: measurement ids sorted by row (stable) and the
-    (r_pad + 1,) int32 offsets of each row's run in that order; rows >=
-    r_pad fall past ``row_off[r_pad]``. The offsets come from a binary
-    search over the sorted rows, not from ``bincount``, which reads its
-    length on the host: no host synchronization, so it can be captured in
-    a CUDA graph, and integer, so deterministic."""
-    rows, order_ids = torch.sort(pm_pix, stable=True)
-    bounds = torch.arange(r_pad + 1, dtype=rows.dtype, device=rows.device)
-    row_off = torch.searchsorted(rows, bounds, out_int32=True)
-    return order_ids.to(torch.int32), row_off
+def sorted_runs(keys, num_keys: int):
+    """Ids of ``keys`` sorted stably (int64) and the (num_keys + 1,) int32
+    offsets of each key's run in that order; keys >= num_keys fall past
+    ``off[num_keys]``. The offsets come from a binary search over the sorted
+    keys, not from ``bincount``, which reads its length on the host: no host
+    synchronization, so it can be captured in a CUDA graph, and integer, so
+    deterministic."""
+    sorted_keys, ids = torch.sort(keys, stable=True)
+    bounds = torch.arange(num_keys + 1, dtype=keys.dtype, device=keys.device)
+    return ids, torch.searchsorted(sorted_keys, bounds, out_int32=True)
+
+
+def inverse_permutation(ids):
+    """pos (int32) with pos[ids[s]] = s: one ``scatter_`` of ``arange``."""
+    n = ids.shape[0]
+    pos = torch.empty(n, dtype=torch.int32, device=ids.device)
+    return pos.scatter_(0, ids, torch.arange(n, dtype=torch.int32, device=ids.device))
+
+
+def chunk_map(off, chunk: int, max_chunks: int, heavy_only: bool = False):
+    """Cut each run of ``off`` ((num_keys + 1,) run offsets) into chunks of
+    ``chunk``; with ``heavy_only`` only runs longer than ``chunk`` are cut
+    and the others get none. Returns ``start`` ((num_keys + 1,) int32, the
+    first chunk of each key; key q owns chunks [start[q], start[q + 1])) and
+    ``key`` ((max_chunks,) int32, the key of each chunk; num_keys for the
+    chunks past the last). ``max_chunks`` is a bound from the sizes alone
+    (:func:`chunk_bounds`), so no size is read on the host."""
+    counts = off[1:] - off[:-1]
+    per = torch.div(counts + (chunk - 1), chunk, rounding_mode="floor")
+    if heavy_only:
+        per = per * (counts > chunk)
+    start = torch.zeros(off.shape[0], dtype=torch.int32, device=off.device)
+    torch.cumsum(per, 0, dtype=torch.int32, out=start[1:])
+    ids = torch.arange(max_chunks, dtype=torch.int32, device=off.device)
+    key = torch.searchsorted(start, ids, right=True, out_int32=True) - 1
+    return start, key
+
+
+def chunk_bounds(n: int, num_keys: int, heavy: int = HEAVY_ROW,
+                 chunk: int = PAIR_CHUNK) -> tuple[int, int]:
+    """(most heavy-row chunks, most knot-pair chunks) of n measurements: a
+    row of c > heavy measurements gives ceil(c / heavy) < 2 c / heavy
+    chunks; the pair runs give at most n / chunk plus one a non-empty key."""
+    return 2 * n // heavy + 1, n // chunk + min(n, num_keys) + 1
+
+
+_LIB = None
+
+
+def _lib():
+    """The kernel library, built at first use, with its C signatures set."""
+    global _LIB
+    if _LIB is None:
+        from . import _build
+
+        lib = _build.load("a12_accum")
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.emba_a12_keys.argtypes = [vp] * 4 + [cll, ci, ci, ci, ci] + [vp] * 3
+        lib.emba_a12_keys.restype = ci
+        lib.emba_a12_form.argtypes = [vp] * 16 + [cll] + [ci] * 10 + [vp] * 8
+        lib.emba_a12_form.restype = ci
+        lib.emba_a12_sizes.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.emba_a12_sizes.restype = ci
+        lib.emba_cuda_error_string.argtypes = [ci]
+        lib.emba_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+@functools.cache
+def scratch_sizes(order: int) -> tuple[int, int]:
+    """(record words, padded A11 cells a chunk partial) of the kernels'
+    scratch at a spline order, as the library lays them out (the layout has
+    no second copy here); builds the library at first use."""
+    lib = _lib()
+    rw, ncp = ctypes.c_int(), ctypes.c_int()
+    err = lib.emba_a12_sizes(order, ctypes.byref(rw), ctypes.byref(ncp))
+    if err != 0:
+        raise ValueError(f"a12_accumulate: order {order} not in (2, 3, 4)")
+    return rw.value, ncp.value
 
 
 def _launch(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix, dim_pose, order,
             carry):
     global launches
-    from . import _build
 
     n, r_pad, dp_pad = check_inputs(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA,
                                     num_pix, dim_pose, order, carry)
+    knots = -(-dim_pose // 3)
+    num_keys = knots * knots
+    if num_keys >= 2**31 - 1 or n >= 2**31 - 1:
+        raise ValueError(f"a12_accumulate: {n} measurements of {knots} knots "
+                         "overflow the kernel's int32 keys")
     device = Jc.device
+    f32, i32 = torch.float32, torch.int32
     if carry is None:
-        a12 = torch.empty((r_pad, 2 * dp_pad), dtype=torch.float32, device=device)
-        px5 = torch.empty((r_pad, 8), dtype=torch.float32, device=device)
-        a11b = torch.empty((dp_pad + 8, dp_pad), dtype=torch.float32, device=device)
+        a12 = torch.empty((r_pad, 2 * dp_pad), dtype=f32, device=device)
+        px5 = torch.empty((r_pad, 8), dtype=f32, device=device)
+        a11b = torch.empty((dp_pad + 8, dp_pad), dtype=f32, device=device)
     else:
         a12, px5, a11b = carry
 
-    order_ids, row_off = row_offsets(pm_pix, r_pad)
-    nblk = max(1, min(A11_BLOCKS, -(-n // A11_MIN_PER_BLOCK)))
-    per_block = -(-n // nblk)
-    partial = torch.empty((nblk, dim_pose + 1, dim_pose), dtype=torch.float32,
-                          device=device)
+    lib = _lib()
 
-    lib = _build.load("a12_accum")
-    fn = lib.emba_a12_accumulate
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp] * 10 + [cll, ci, ci, ci, ci, ci, ci, cll] + [vp] * 5
-    fn.restype = ci
-    lib.emba_cuda_error_string.argtypes = [ci]
-    lib.emba_cuda_error_string.restype = ctypes.c_char_p
-    stream = torch.cuda.current_stream(device).cuda_stream
+    def check(err):
+        if err != 0:
+            msg = lib.emba_cuda_error_string(err).decode()
+            raise RuntimeError(f"a12_accumulate: CUDA launch failed: {msg} ({err})")
+
+    rw, ncp = scratch_sizes(order)
+    max_heavy, max_chunks = chunk_bounds(n, num_keys)
     with torch.cuda.device(device):
-        err = fn(
-            order_ids.data_ptr(), row_off.data_ptr(), i_c.data_ptr(),
-            i_p.data_ptr(), Jc.data_ptr(), Jp.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), e.data_ptr(), wA.data_ptr(), n, order, dim_pose,
-            dp_pad, r_pad, int(carry is not None), nblk, per_block,
-            a12.data_ptr(), px5.data_ptr(), a11b.data_ptr(), partial.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        msg = lib.emba_cuda_error_string(err).decode()
-        raise RuntimeError(f"a12_accumulate: CUDA launch failed: {msg} ({err})")
+        stream = torch.cuda.current_stream(device).cuda_stream
+        row_key = torch.empty(n, dtype=i32, device=device)
+        pair_key = torch.empty(n, dtype=i32, device=device)
+        check(lib.emba_a12_keys(pm_pix.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
+                                wA.data_ptr(), n, order, dim_pose, r_pad, knots,
+                                row_key.data_ptr(), pair_key.data_ptr(), stream))
+        row_ids, row_off = sorted_runs(row_key, r_pad)
+        pair_ids, key_off = sorted_runs(pair_key, num_keys)
+        # records lie in pair order; the rows reach theirs through slot
+        pos = inverse_permutation(pair_ids)
+        slot = torch.gather(pos, 0, row_ids)
+        del row_ids, pair_ids, row_key, pair_key
+        hc_start, hc_row = chunk_map(row_off, HEAVY_ROW, max_heavy, heavy_only=True)
+        ck_start, ck_key = chunk_map(key_off, PAIR_CHUNK, max_chunks)
+        rec = torch.empty((n, rw), dtype=f32, device=device)
+        heavy_part = torch.empty((max_heavy, 2 * dp_pad + 8), dtype=f32, device=device)
+        a11_part = torch.empty((max_chunks, ncp), dtype=f32, device=device)
+        marg = torch.empty((2, knots, ncp), dtype=f32, device=device)
+        check(lib.emba_a12_form(
+            pos.data_ptr(), slot.data_ptr(), row_off.data_ptr(),
+            hc_start.data_ptr(), hc_row.data_ptr(), key_off.data_ptr(),
+            ck_start.data_ptr(), ck_key.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
+            Jc.data_ptr(), Jp.data_ptr(), dx.data_ptr(), dy.data_ptr(), e.data_ptr(),
+            wA.data_ptr(), n, order, dim_pose, dp_pad, r_pad, knots,
+            int(carry is not None), max_heavy, HEAVY_ROW, max_chunks, PAIR_CHUNK,
+            rec.data_ptr(), heavy_part.data_ptr(),
+            a11_part.data_ptr(), marg.data_ptr(), a12.data_ptr(), px5.data_ptr(),
+            a11b.data_ptr(), stream))
     launches += 1
     return a12, px5, a11b
 

@@ -14,7 +14,11 @@ runs is 8 steps with the set-up and the first objective cancelled:
 * ``wall_ms``: host clock, device synchronized at both ends;
 * ``device_ms``: the sum of the device activities (kernels, copies,
   fills) the profiler recorded;
-* ``idle``: 1 - device_ms / wall_ms.
+* ``idle``: 1 - device_ms / wall_ms;
+* ``phase_ms`` (host loop only): its objective, form and solve seconds as
+  ``solver.LMStats`` clocks them, each phase ending in a synchronization;
+* ``cuda_mallocs``: the allocator's ``cudaMalloc`` calls in the long and
+  the short run (0 when its cache already holds every buffer).
 
 ``REPS`` repetitions of each. ``top`` lists the device activities of the
 last 9-step run of each loop by total time (name, count, ms). It prints
@@ -36,7 +40,7 @@ import torch
 
 from .. import solver, spline, synth
 from .. import model as M
-from ..device import card_name_and_power_limit, full_precision, require_cuda
+from ..device import card_name_and_power_limit, cuda_mallocs, full_precision, require_cuda
 from ..pairing import build_window
 
 STEPS = (8, 0)  # max_num_iter of the long and the short run
@@ -75,9 +79,9 @@ def main_window(device):
 def _loops(w):
     """name -> fn(max_num_iter) running that loop on the window once."""
     def host(iters):
-        solver.solve_window(*w["start"], w["dev"], w["cfg"],
-                            solver.LMConfig(max_num_iter=iters, tol_fun=0.0),
-                            fix_first=True)
+        return solver.solve_window(*w["start"], w["dev"], w["cfg"],
+                                   solver.LMConfig(max_num_iter=iters, tol_fun=0.0),
+                                   fix_first=True)[3]
 
     def fused(iters, use_cg=False):
         solver.solve_window_fused(*w["start"], w["dev"], w["cfg"], 1.0, 0.0,
@@ -120,17 +124,26 @@ def run(device) -> dict:
     for name, loop in _loops(w).items():
         res[name] = []
         for _ in range(REPS):
-            walls, devs = [], []
+            walls, devs, stats, mallocs = [], [], [], []
             for iters in STEPS:
                 loop(iters)  # builds and caches the fused loop's graphs
-                wall, dev_ms, acts = _profiled(lambda: loop(iters))
+                out = {}
+                m0 = cuda_mallocs()
+                wall, dev_ms, acts = _profiled(lambda: out.update(st=loop(iters)))
+                mallocs.append(cuda_mallocs() - m0)
                 walls.append(wall)
                 devs.append(dev_ms)
+                stats.append(out["st"])
                 if iters == STEPS[0]:
                     top[name] = _top(acts)
             wall, dev_ms = walls[0] - walls[1], devs[0] - devs[1]
-            res[name].append({"wall_ms": wall, "device_ms": dev_ms,
-                              "idle": 1.0 - dev_ms / wall})
+            rec = {"wall_ms": wall, "device_ms": dev_ms, "idle": 1.0 - dev_ms / wall,
+                   "cuda_mallocs": mallocs}
+            if stats[0] is not None:  # the host loop's own phase clocks
+                rec["phase_ms"] = {
+                    p: 1e3 * (getattr(stats[0], f"time_{p}_s") - getattr(stats[1], f"time_{p}_s"))
+                    for p in ("objective", "form", "solve")}
+            res[name].append(rec)
         print(f"profile_fused: {name} {json.dumps(res[name])}", file=sys.stderr, flush=True)
     return {"steps": STEPS[0] - STEPS[1], "loops": res, "top": top}
 

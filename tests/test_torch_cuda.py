@@ -89,6 +89,112 @@ def test_cuda_kernel_carry_accumulates_in_place(cuda_device):
         assert torch.max(torch.abs(g - w)) <= 1e-5 * torch.max(torch.abs(w))
 
 
+def check_kernel(args, hw, dim, order):
+    """Kernel twice (same bits) against the plain version; returns the
+    kernel's outputs."""
+    got = TK.a12_accumulate(*args, hw, dim, order)
+    again = TK.a12_accumulate(*args, hw, dim, order)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    want = TK.a12_accumulate_plain(*args, hw, dim, order)
+    for g, w in zip(unpadded(got, hw, dim), unpadded(want, hw, dim)):
+        assert torch.isfinite(g).all()
+        assert torch.max(torch.abs(g - w)) <= 1e-5 * torch.max(torch.abs(w))
+    return got
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_heavy_rows(cuda_device):
+    """Rows above the heavy-row threshold (cut into chunks reduced by their
+    own warps), one just above it and one at it."""
+    rng = np.random.default_rng(21)
+    hw, knots = 4096, 20
+    args = make_inputs(rng, 40_000, hw, knots, 2, cuda_device)
+    pix = args[0].cpu().numpy()
+    perm = rng.permutation(pix.shape[0])
+    pix[perm[:5_000]] = 77
+    pix[perm[5_000:5_000 + TK.HEAVY_ROW + 1]] = 1_000
+    pix[perm[6_000:6_000 + TK.HEAVY_ROW]] = 2_000
+    args[0] = torch.as_tensor(pix, device=cuda_device)
+    check_kernel(args, hw, 3 * knots, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_carry_keeps_empty_rows(cuda_device):
+    """Under carry, the rows the second call does not touch keep the carry's
+    bits; the touched ones hold the sum of both calls."""
+    rng = np.random.default_rng(22)
+    hw, knots, dim = 4096, 20, 60
+    first = make_inputs(rng, 30_000, hw, knots, 2, cuda_device)
+    second = make_inputs(rng, 2_000, hw, knots, 2, cuda_device)
+    second[0] = torch.remainder(second[0], 64)  # rows 0..63 only
+    out = TK.a12_accumulate(*first, hw, dim, 2)
+    before = [t.clone() for t in out]
+    chained = TK.a12_accumulate(*second, hw, dim, 2, carry=out)
+    assert torch.equal(chained[0][64:], before[0][64:])
+    assert torch.equal(chained[1][64:], before[1][64:])
+    cat = [torch.cat([x, y], dim=-1) for x, y in zip(first, second)]
+    want = TK.a12_accumulate_plain(*cat, hw, dim, 2)
+    for g, w in zip(unpadded(chained, hw, dim), unpadded(want, hw, dim)):
+        assert torch.max(torch.abs(g - w)) <= 1e-5 * torch.max(torch.abs(w))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_time_ordered_inputs(cuda_device):
+    """As in a real window: i_c does not decrease in k and i_p is i_c or one
+    before it, so the knot-pair sort is nearly the identity."""
+    rng = np.random.default_rng(23)
+    hw, knots, n = 8192, 30, 60_000
+    args = make_inputs(rng, n, hw, knots, 2, cuda_device)
+    i_c = np.sort(rng.integers(0, knots - 1, n))
+    i_p = np.clip(i_c - (rng.random(n) < 0.3), 0, None)
+    args[1] = torch.as_tensor(i_c.astype(np.int32), device=cuda_device)
+    args[2] = torch.as_tensor(i_p.astype(np.int32), device=cuda_device)
+    check_kernel(args, hw, 3 * knots, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_random_pairs_order4(cuda_device):
+    """i_c and i_p drawn independently (i_p may follow i_c) at order 4."""
+    rng = np.random.default_rng(24)
+    hw, knots, n = 4096, 16, 40_000
+    args = make_inputs(rng, n, hw, knots, 4, cuda_device)
+    for i in (1, 2):
+        args[i] = torch.as_tensor(rng.integers(0, knots - 3, n).astype(np.int32),
+                                  device=cuda_device)
+    check_kernel(args, hw, 3 * knots, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_many_knots(cuda_device):
+    """K = 300: 90,000 knot pairs, far more than the chunks of the run, an
+    A11 of 900 x 900 and 7.3 KB row buffers (6 warps a block)."""
+    rng = np.random.default_rng(25)
+    hw, knots = 2048, 300
+    args = make_inputs(rng, 80_000, hw, knots, 2, cuda_device)
+    far = rng.random(80_000) < 0.3
+    i_p = args[2].cpu().numpy()
+    i_p[far] = rng.integers(0, knots - 1, int(far.sum()))
+    args[2] = torch.as_tensor(i_p, device=cuda_device)
+    check_kernel(args, hw, 3 * knots, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 3, 4])
+def test_cuda_scratch_sizes_hold_the_layout(cuda_device, order):
+    """The library's scratch layout: a record holds 5 head words and 2D
+    entries in whole 32-byte sectors, one word a lane of a warp; a chunk
+    partial holds the (2D+1)(2D+2)/2 cells of the A11 vector, padded to a
+    warp. Another order is refused."""
+    d = 3 * order
+    rw, ncp = TK.scratch_sizes(order)
+    assert 5 + 2 * d <= rw <= 32 and rw % 8 == 0
+    assert (2 * d + 1) * (2 * d + 2) // 2 <= ncp < (2 * d + 1) * (2 * d + 2) // 2 + 32
+    assert ncp % 32 == 0
+    with pytest.raises(ValueError):
+        TK.scratch_sizes(5)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
     rng = np.random.default_rng(0)
@@ -109,7 +215,7 @@ def test_cuda_row_offsets_match_bincount(cuda_device):
     r_pad = 1024
     pix = np.concatenate([rng.integers(0, 300, 5000), rng.integers(r_pad, 2 * r_pad, 50)])
     pm = torch.as_tensor(pix.astype(np.int32), device=cuda_device)
-    order, off = TK.row_offsets(pm, r_pad)
+    order, off = TK.sorted_runs(pm, r_pad)
     counts = torch.bincount(pm.long(), minlength=2 * r_pad)[:r_pad]
     want = torch.zeros(r_pad + 1, dtype=torch.int64, device=cuda_device)
     want[1:] = torch.cumsum(counts, 0)

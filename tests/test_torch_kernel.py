@@ -92,14 +92,118 @@ def test_row_offsets_match_bincount(case):
                np.full(50, r_pad - 1)]),
            "none": np.zeros(0, np.int64)}[case]
     pm = torch.as_tensor(rng.permutation(pix).astype(np.int32))
-    order, off = TK.row_offsets(pm, r_pad)
+    order, off = TK.sorted_runs(pm, r_pad)
     counts = np.bincount(pm.numpy(), minlength=r_pad)[:r_pad]
     want = np.concatenate([[0], np.cumsum(counts)])
-    assert off.dtype == torch.int32 and order.dtype == torch.int32
+    assert off.dtype == torch.int32 and order.dtype == torch.int64
     np.testing.assert_array_equal(off.numpy(), want)
     np.testing.assert_array_equal(order.numpy(), np.argsort(pm.numpy(), kind="stable"))
     if case != "spread":
         assert (np.diff(want) == 0).any()
+
+
+@pytest.mark.parametrize("n", [0, 1, 5000])
+def test_inverse_permutation_matches_numpy(n):
+    """pos[ids[s]] = s for the stable sort's ids, as the pack kernel's slots."""
+    rng = np.random.default_rng(n)
+    keys = torch.as_tensor(rng.integers(0, 40, n).astype(np.int32))
+    ids, _ = TK.sorted_runs(keys, 40)
+    pos = TK.inverse_permutation(ids)
+    want = np.empty(n, np.int64)
+    want[np.argsort(keys.numpy(), kind="stable")] = np.arange(n)
+    assert pos.dtype == torch.int32
+    np.testing.assert_array_equal(pos.numpy(), want)
+
+
+def test_pair_key_offsets_match_bincount():
+    """Knot-pair keys i_c * K + i_p (K^2 for a dropped measurement): the run
+    offsets over the K^2 keys equal bincount + cumsum, with empty keys, and
+    the dropped measurements fall past the last offset."""
+    rng = np.random.default_rng(9)
+    knots, n = 30, 4000
+    i_c = rng.integers(0, knots - 1, n)
+    i_p = np.clip(i_c - rng.integers(0, 2, n), 0, None)
+    keys = np.where(rng.random(n) < 0.1, knots * knots, i_c * knots + i_p)
+    ids, off = TK.sorted_runs(torch.as_tensor(keys.astype(np.int32)), knots * knots)
+    counts = np.bincount(keys, minlength=knots * knots + 1)[:knots * knots]
+    np.testing.assert_array_equal(off.numpy(), np.concatenate([[0], np.cumsum(counts)]))
+    assert (counts == 0).sum() > knots * knots // 2
+    np.testing.assert_array_equal(ids.numpy(), np.argsort(keys, kind="stable"))
+
+
+def _chunks_numpy(counts, chunk, heavy_only):
+    """Loop reference: (first chunk of each key, key of each chunk)."""
+    start, key = [0], []
+    for q, c in enumerate(counts):
+        m = -(-c // chunk) if (c > chunk or not heavy_only) else 0
+        key += [q] * m
+        start.append(start[-1] + m)
+    return np.array(start), np.array(key, np.int64)
+
+
+@pytest.mark.parametrize("heavy_only", [False, True])
+@pytest.mark.parametrize("case", ["mixed", "none", "exactly one chunk", "bound"])
+def test_chunk_map_matches_numpy(case, heavy_only):
+    """chunk -> key maps against a loop, with empty keys, runs of exactly one
+    chunk and runs beyond one; the chunks past the last get key num_keys,
+    and the chunks of each key cover its run exactly once. The "bound" case
+    is the worst case of ``chunk_bounds`` (every run one past a chunk)."""
+    rng = np.random.default_rng(12)
+    chunk = 8
+    counts = {"mixed": rng.choice([0, 0, 1, 7, 8, 9, 16, 17, 40], 300),
+              "none": np.zeros(50, np.int64),
+              "exactly one chunk": np.full(20, chunk),
+              "bound": np.full(60, chunk + 1)}[case]
+    num_keys, n = counts.shape[0], int(counts.sum())
+    off = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    max_heavy, max_pair = TK.chunk_bounds(n, num_keys, chunk, chunk)
+    max_chunks = max_heavy if heavy_only else max_pair
+    start, key = TK.chunk_map(off, chunk, max_chunks, heavy_only)
+    want_start, want_key = _chunks_numpy(counts, chunk, heavy_only)
+    assert start.dtype == torch.int32 and key.dtype == torch.int32
+    assert want_key.shape[0] <= max_chunks
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    total = want_key.shape[0]
+    np.testing.assert_array_equal(key.numpy()[:total], want_key)
+    assert (key.numpy()[total:] == num_keys).all()
+    # the kernel's ranges: chunk c of key q covers [off[q] + (c - start[q]) *
+    # chunk, min(.. + chunk, off[q + 1]))
+    covered = np.zeros(n, np.int64)
+    o, s = off.numpy(), start.numpy()
+    for c in range(total):
+        q = key.numpy()[c]
+        s0 = o[q] + (c - s[q]) * chunk
+        covered[s0:min(s0 + chunk, o[q + 1])] += 1
+    heavy_rows = np.repeat(counts > chunk, counts) if heavy_only else np.ones(n, bool)
+    np.testing.assert_array_equal(covered, heavy_rows.astype(np.int64))
+
+
+@pytest.mark.parametrize("case", ["valid", "order 5", "pm_pix int64",
+                                  "Jc not contiguous", "Jc of another order",
+                                  "carry of another shape"])
+def test_check_inputs_holds_the_kernel_contract(case):
+    """The CUDA wrapper's input check: int32 ids, f32 (3*order, N)
+    half-Jacobians, contiguous, carry of the output shapes; anything else
+    raises ValueError before a launch."""
+    rng = np.random.default_rng(8)
+    hw, knots, order, n = 300, 6, 2, 50
+    args = [torch.from_numpy(a) for a in make_inputs(rng, n, hw, knots, order)]
+    carry = TK._zeros_out(*TK.padded_dims(hw, 3 * knots), torch.float32, "cpu")
+    if case == "order 5":
+        order = 5
+    elif case == "pm_pix int64":
+        args[0] = args[0].long()
+    elif case == "Jc not contiguous":
+        args[3] = args[3].T.contiguous().T
+    elif case == "Jc of another order":
+        order = 3
+    elif case == "carry of another shape":
+        carry = TK._zeros_out(*TK.padded_dims(2 * hw, 3 * knots), torch.float32, "cpu")
+    if case == "valid":
+        assert TK.check_inputs(*args, hw, 3 * knots, order, carry) == (n, 384, 32)
+    else:
+        with pytest.raises(ValueError):
+            TK.check_inputs(*args, hw, 3 * knots, order, carry)
 
 
 def test_plain_matches_loop_reference_f64():
