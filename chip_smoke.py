@@ -12,8 +12,12 @@ Phases, each reporting on its own lines:
    version on the same GPU tensors, at the main path's shapes and at edge
    cases; repeated runs must give the same bits;
 4. gather check: the gather-sum kernel in both disciplines against its
-   plain torch version and an f64 sum, at the probe's shapes and at edge
-   cases; repeated runs must give the same bits;
+   plain torch version and an f64 sum, at N = 2M with R = 8 and 16 (the
+   probe's shapes) and 32 (several passes of the row sweep), and at edge
+   cases (one chunk, repeated ids, R = 1, MC = 1, R = 3 at MC = 100);
+   repeated runs, and the batched kernel with one row a pass, must give
+   the same bits; each case prints its rows per pass, the timed ones their
+   bound and sector bound;
 5. probe: ``emba_tpu_torch.probes.gather_probe``, the gather kernel's own
    entry point (its JSON line);
 6. reference check: a small window solved on the GPU in f32 against the
@@ -235,11 +239,13 @@ def phase_kernels(device):
 
 def check_gather_case(name, payload, idx, timed=False):
     """The gather kernel in both disciplines against its plain version on
-    the same GPU tensors and against an f64 sum of the same columns.
-    Returns (max |kernel - plain|, {discipline: (kernel ms, plain ms)})."""
+    the same GPU tensors and against an f64 sum of the same columns; the
+    batched kernel with one row a pass must give the bits of the rule's
+    passes. Returns (max |kernel - plain|, rows per pass of the rule,
+    {discipline: (kernel ms, plain ms, kernel ms as a CUDA graph replay)})."""
     import torch
 
-    from emba_tpu_torch.device import cuda_time_ms
+    from emba_tpu_torch.device import cuda_time_ms, graph_time_ms
     from emba_tpu_torch.kernels import gather_sum as G
 
     cols = payload.double().index_select(1, idx.reshape(-1).long())
@@ -247,6 +253,7 @@ def check_gather_case(name, payload, idx, timed=False):
     scale = cols.abs().sum(dim=1, keepdim=True).clamp(min=1e-30)
     del cols
     plain = G.gather_sum_plain(payload, idx)
+    rule = G.device_pass_size(payload)
     max_abs, times, parts = 0.0, {}, []
     for serial in (False, True):
         tag = "serial" if serial else "batched"
@@ -256,6 +263,10 @@ def check_gather_case(name, payload, idx, timed=False):
         _require(got.shape == (payload.shape[0], 1), f"gather {name}: shape {got.shape}")
         _require(torch.equal(got, again), f"gather {name} {tag}: repeated runs differ")
         _require(torch.isfinite(got).all().item(), f"gather {name} {tag}: not finite")
+        if not serial:
+            one = G.gather_sum(payload, idx, False, rows_per_pass=1)
+            _require(torch.equal(got, one),
+                     f"gather {name}: one row a pass differs from {rule} rows a pass")
         for who, out in ((tag, got), ("plain", plain)):
             rel = float(((out.double() - want).abs() / scale).max())
             _require(rel <= GATHER_REL_TOL,
@@ -263,57 +274,80 @@ def check_gather_case(name, payload, idx, timed=False):
             parts.append(f"{who} {rel:.2e}")
         max_abs = max(max_abs, float((got - plain).abs().max()))
         if timed:
-            times[tag] = (
-                cuda_time_ms(lambda: G.gather_sum(payload, idx, serial, check_ids=False)),
-                cuda_time_ms(lambda: G.gather_sum_plain(payload, idx)))
-    print(f"gather {name}: bitwise-repeatable; err / sum|x| vs f64: " + ", ".join(parts)
+            def kernel():
+                return G.gather_sum(payload, idx, serial, check_ids=False)
+            times[tag] = (cuda_time_ms(kernel),
+                          cuda_time_ms(lambda: G.gather_sum_plain(payload, idx)),
+                          graph_time_ms(kernel))
+    print(f"gather {name}: rows per pass {rule}; bitwise-repeatable, one row a pass "
+          f"gives the same bits; err / sum|x| vs f64: " + ", ".join(parts)
           + f"; max |kernel - plain| {max_abs:.3e}"
-          + "".join(f"; {t} kernel {k:.3f} ms, plain {p:.3f} ms"
-                    for t, (k, p) in times.items()), flush=True)
-    return max_abs, times
+          + "".join(f"; {t} kernel {k:.3f} ms ({g:.3f} ms graph replay), plain {p:.3f} ms"
+                    for t, (k, p, g) in times.items()), flush=True)
+    return max_abs, rule, times
+
+
+def gather_bounds(rows, cols):
+    """(bound ms, "bytes" or "operations", sector bound ms) of one gather
+    call over ``cols`` ids: the payload's gathered elements and the ids read
+    once and (R, 1) written, R adds a column; the sector bound moves a
+    32-byte sector from device memory for every gathered element."""
+    b_ms, b_by = _bound(4 * (rows * cols + cols + rows), rows * cols)
+    return b_ms, b_by, 32 * rows * cols / HBM_BYTES_PER_S * 1e3
 
 
 def phase_gather(device):
-    """Every gather case; returns (max abs err, R=16 batched kernel ms, its
-    plain ms, bound ms, bound kind, index_select + sum ms)."""
+    """Every gather case; returns the R=16 case's numbers: max abs err over
+    all cases, batched kernel ms, its plain ms, bound ms, bound kind,
+    index_select + sum ms, rows per pass, sector bound ms, and the kernel's
+    and index_select + sum's ms as CUDA graph replays."""
     import torch
 
-    from emba_tpu_torch.device import cuda_time_ms
+    from emba_tpu_torch.device import cuda_time_ms, graph_time_ms
     from emba_tpu_torch.kernels.gather_sum import MC
 
     rng = np.random.default_rng(5)
     n = 2_000_000
-    max_abs, main_times = 0.0, None
+    max_abs, main = 0.0, None
 
     def gpu(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
-    for rows in (8, 16):
+    for rows in (8, 16, 32):
         payload = gpu(rng.standard_normal((rows, n)), torch.float32)
         perm = rng.permutation(n).astype(np.int32)
         idx = gpu(perm[:n // MC * MC].reshape(-1, MC), torch.int32)
-        err, times = check_gather_case(f"R={rows} N={n} chunks={n // MC}", payload,
-                                       idx, timed=True)
+        err, rule, times = check_gather_case(f"R={rows} N={n} chunks={n // MC}",
+                                             payload, idx, timed=True)
         max_abs = max(max_abs, err)
-        # payload columns and ids read once, (R, 1) written; R adds a column
-        cols = idx.numel()
-        b_ms, b_by = _bound(4 * (rows * cols + cols + rows), rows * cols)
+        b_ms, b_by, s_ms = gather_bounds(rows, idx.numel())
         src = idx.reshape(-1).long()
-        lib_ms = cuda_time_ms(lambda: payload.index_select(1, src).sum(dim=1, keepdim=True))
-        print(f"gather R={rows}: bound {b_ms:.4f} ms ({b_by}), index_select + sum "
-              f"{lib_ms:.3f} ms, batched kernel share of bound "
-              f"{b_ms / times['batched'][0]:.3f}", flush=True)
+
+        def library():
+            return payload.index_select(1, src).sum(dim=1, keepdim=True)
+        lib_ms, lib_g_ms = cuda_time_ms(library), graph_time_ms(library)
+        k_ms, k_plain_ms, k_g_ms = times["batched"]
+        print(f"gather R={rows}: rows per pass {rule}; bound {b_ms:.4f} ms ({b_by}), "
+              f"sector bound {s_ms:.4f} ms; index_select + sum {lib_ms:.3f} ms "
+              f"({lib_g_ms:.3f} ms graph replay); batched kernel {k_ms:.3f} ms "
+              f"({k_g_ms:.3f} ms graph replay): share of bound {b_ms / k_ms:.3f}, "
+              f"sector bound / kernel {s_ms / k_ms:.3f} ({s_ms / k_g_ms:.3f} graph "
+              f"replay)", flush=True)
         if rows == 16:
-            main_times = (*times["batched"], b_ms, b_by, lib_ms)
+            main = (k_ms, k_plain_ms, b_ms, b_by, lib_ms, rule, s_ms, k_g_ms, lib_g_ms)
+            p16, idx16 = payload, idx
+        del payload
     edge = [
-        ("one chunk", payload, idx[:1].contiguous()),
-        ("repeated ids", payload, gpu(rng.integers(0, 64, (40, MC)), torch.int32)),
-        ("R=1", gpu(rng.standard_normal((1, n)), torch.float32), idx),
-        ("MC=1, last column", payload, gpu(np.full((3, 1), n - 1), torch.int32)),
+        ("one chunk", p16, idx16[:1].contiguous()),
+        ("repeated ids", p16, gpu(rng.integers(0, 64, (40, MC)), torch.int32)),
+        ("R=1", gpu(rng.standard_normal((1, n)), torch.float32), idx16),
+        ("MC=1, last column", p16, gpu(np.full((3, 1), n - 1), torch.int32)),
+        ("R=3, MC=100", gpu(rng.standard_normal((3, n)), torch.float32),
+         gpu(perm[:n // 100 * 100].reshape(-1, 100), torch.int32)),
     ]
     for name, p_, i_ in edge:
         max_abs = max(max_abs, check_gather_case(name, p_, i_)[0])
-    return (max_abs, *main_times)
+    return (max_abs, *main)
 
 
 def phase_probe():
@@ -657,7 +691,8 @@ def main() -> int:
           flush=True)
 
     syn = phase_kernels(device)
-    g_err, g_ms, g_plain_ms, g_bound, g_by, g_lib = phase_gather(device)
+    (g_err, g_ms, g_plain_ms, g_bound, g_by, g_lib, g_rows, g_sector, g_graph,
+     g_lib_graph) = phase_gather(device)
     g_launches = phase_probe()
     phase_reference(device)
     ctx = phase_main(device)
@@ -699,6 +734,10 @@ def main() -> int:
         "bound_ms": g_bound,
         "bound_by": g_by,
         "library_ms": g_lib,
+        "rows_per_pass": g_rows,
+        "sector_bound_ms": g_sector,
+        "graph_ms": g_graph,
+        "library_graph_ms": g_lib_graph,
     }]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

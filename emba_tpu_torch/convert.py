@@ -45,10 +45,11 @@ def lm_state_to_numpy(payload: dict) -> dict:
     return out
 
 
-def device_window_from_jax(dev, dtype=None, device="cpu") -> DeviceWindow:
-    """An ``emba_tpu.model.DeviceWindow`` -> the port's DeviceWindow.
-    Floating fields keep their dtype unless ``dtype`` is given; integer and
-    bool fields keep theirs."""
+def device_window_from_jax(dev, dtype=None, *, device) -> DeviceWindow:
+    """An ``emba_tpu.model.DeviceWindow`` -> the port's DeviceWindow on
+    ``device``, which the caller names (no default: neither the card nor
+    the CPU is assumed). Floating fields keep their dtype unless ``dtype``
+    is given; integer and bool fields keep theirs."""
     fields = {}
     for name in DeviceWindow.__dataclass_fields__:
         a = getattr(dev, name)

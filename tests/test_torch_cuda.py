@@ -262,6 +262,65 @@ def test_cuda_gather_kernel_matches_plain(cuda_device, rows):
         assert torch.max((got.double() - want).abs() / scale) <= 1e-6
 
 
+def gather_reference(payload, idx):
+    """(f64 sums of the named columns, their sums of magnitudes)."""
+    cols = payload.double()[:, idx.reshape(-1).long()]
+    return cols.sum(1, keepdim=True), cols.abs().sum(1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mc", [1, 100, 256, 1000])
+@pytest.mark.parametrize("rows", [3, 17])
+def test_cuda_gather_bits_do_not_depend_on_passes_or_grid(cuda_device, rows, mc):
+    """The batched row sweep at N = 1M (R*N*4 = 12 or 68 MB: the rule sweeps
+    R = 17 in several passes): passes of 1, 2 (which divides neither R), R
+    and the rule's rows, and grids of 1, 3 and the card's blocks, give the
+    same bits, within 1e-6 of the f64 sum's sum of magnitudes; so does the
+    serial discipline. MC = 1000 takes the kernels' paths for chunks wider
+    than a warp's 256 ids and a block's 256 threads."""
+    rng = np.random.default_rng(100 * rows + mc)
+    n = 1_000_000
+    payload = torch.as_tensor(rng.standard_normal((rows, n)), dtype=torch.float32,
+                              device=cuda_device)
+    chunks = min(n // mc, 4096)
+    ids = rng.permutation(n)[:chunks * mc].reshape(chunks, mc).astype(np.int32)
+    idx = torch.as_tensor(ids, device=cuda_device)
+    want, scale = gather_reference(payload, idx)
+    rule = TG.device_pass_size(payload)
+    if rows == 17:
+        assert rule < rows
+    got = TG.gather_sum(payload, idx, False)
+    assert got.shape == (rows, 1)
+    assert torch.max((got.double() - want).abs() / scale) <= 1e-6
+    for p, blocks in [(1, None), (2, None), (rows, None), (rule, 3), (2, 1)]:
+        again = TG.gather_sum(payload, idx, False, rows_per_pass=p, grid_blocks=blocks)
+        assert torch.equal(again, got), (p, blocks)
+    serial = TG.gather_sum(payload, idx, True)
+    assert torch.max((serial.double() - want).abs() / scale) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_gather_repeated_ids_and_a_bad_id(cuda_device):
+    """Ids repeated many times in a chunk and across chunks sum each
+    repeat; one id out of range among 10^5 is refused by the host check."""
+    rng = np.random.default_rng(31)
+    payload = torch.as_tensor(rng.standard_normal((5, 10_000)), dtype=torch.float32,
+                              device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, 40, (400, TG.MC)).astype(np.int32),
+                          device=cuda_device)
+    want, scale = gather_reference(payload, idx)
+    for serial in (False, True):
+        got = TG.gather_sum(payload, idx, serial, rows_per_pass=2)
+        assert torch.max((got.double() - want).abs() / scale) <= 1e-6
+    bad = idx.clone()
+    bad[123, 45] = 10_000
+    with pytest.raises(IndexError):
+        TG.gather_sum(payload, bad, False)
+    bad[123, 45] = -1
+    with pytest.raises(IndexError):
+        TG.gather_sum(payload, bad, True)
+
+
 @pytest.mark.cuda
 def test_cuda_gather_kernel_rejects_what_it_cannot_take(cuda_device):
     payload = torch.zeros((4, 100), device=cuda_device)

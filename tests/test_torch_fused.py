@@ -51,7 +51,8 @@ def case():
     jdev = JM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
                                        jnp.float64)
     state = (traj0.knots, scene.gx * 0.9, scene.gy * 0.9)
-    return dict(jdev=jdev, tdev=convert.device_window_from_jax(jdev), state=state)
+    return dict(jdev=jdev, tdev=convert.device_window_from_jax(jdev, device="cpu"),
+                state=state)
 
 
 def port_state(case):

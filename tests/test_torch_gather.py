@@ -78,10 +78,44 @@ def test_wrapper_contract_errors():
         TG.gather_sum(payload, idx - 1, False)
     with pytest.raises(IndexError):
         TG.gather_sum(payload, idx + 100, False)
-    with pytest.raises(ValueError, match="shared memory"):
-        TG.gather_sum(torch.zeros((300, 10)), torch.zeros((1, 256), dtype=torch.int32),
-                      False)
+    with pytest.raises(ValueError, match="rows_per_pass"):
+        TG.gather_sum(payload, idx, False, rows_per_pass=0)
+    with pytest.raises(ValueError, match="grid_blocks"):
+        TG.gather_sum(payload, idx, False, grid_blocks=-1)
     assert TG.check_inputs(payload, idx) == (4, 100, 2, 8)
+
+
+def test_many_rows_and_a_full_chunk_sum_to_the_f64_sum():
+    """R = 300 at MC = 256: no discipline stages (R, MC) in shared memory any
+    longer, so the wrapper takes any R (it refused this shape until the row
+    sweep)."""
+    rng = np.random.default_rng(4)
+    payload = rng.standard_normal((300, 1000)).astype(np.float32)
+    idx = rng.integers(0, 1000, (3, TG.MC)).astype(np.int32)
+    cols = payload.astype(np.float64)[:, idx.reshape(-1)]
+    for serial in (False, True):
+        got = TG.gather_sum(torch.from_numpy(payload), torch.from_numpy(idx), serial,
+                            rows_per_pass=7)
+        assert got.shape == (300, 1)
+        err = np.abs(got.numpy() - cols.sum(1, keepdims=True))
+        assert np.all(err <= 1e-6 * np.abs(cols).sum(1, keepdims=True))
+
+
+L2_H100 = 52_428_800  # bytes, as torch reports the H100's L2
+
+
+@pytest.mark.parametrize("n", [100, 2_000_000])
+@pytest.mark.parametrize("rows", [1, 3, 8, 16, 300])
+def test_pass_rule_fits_the_l2_share_and_covers_the_rows(rows, n):
+    p = TG.pass_size(rows, n, L2_H100)
+    assert 1 <= p <= rows
+    assert p == 1 or p * n * 4 <= TG.L2_SHARE * L2_H100
+    if p < rows:  # the rule takes as many rows as fit
+        assert (p + 1) * n * 4 > TG.L2_SHARE * L2_H100
+    passes = TG.row_passes(rows, p)
+    assert [r for r0, r1 in passes for r in range(r0, r1)] == list(range(rows))
+    assert all(r1 - r0 == p for r0, r1 in passes[:-1])
+    assert 1 <= passes[-1][1] - passes[-1][0] <= p
 
 
 def test_probe_needs_a_card(tmp_path):

@@ -48,7 +48,7 @@ def case():
                                        jnp.float64)
     state = (traj.knots, scene.gx * 0.9, scene.gy * 0.9)
     return dict(win=win, lut=sensor.bearing_lut(), jdev=jdev,
-                tdev=convert.device_window_from_jax(jdev), state=state,
+                tdev=convert.device_window_from_jax(jdev, device="cpu"), state=state,
                 num_knots=traj.num_knots)
 
 
@@ -192,6 +192,12 @@ def test_unported_config_fields_raise(field):
         TM.ModelConfig(**CFG, **{field: value})
 
 
+def test_device_window_from_jax_needs_a_device():
+    """No device is assumed: the caller names the card or the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        convert.device_window_from_jax(None)
+
+
 def test_linearization_meets_cuda_kernel_contract(case):
     """The f32 linearization hands the CUDA kernel what it takes (int32 and
     f32, contiguous (D, N) Jacobians): checked here, launched on the card."""
@@ -199,7 +205,8 @@ def test_linearization_meets_cuda_kernel_contract(case):
 
     cfg = TM.ModelConfig(**CFG)
     tk, tgx, tgy = convert.state_from_numpy(*case["state"], torch.float32, "cpu")
-    dev = convert.device_window_from_jax(case["jdev"], dtype=torch.float32)
+    dev = convert.device_window_from_jax(case["jdev"], dtype=torch.float32,
+                                          device="cpu")
     lin = TM.linearize(tk, tgx, tgy, dev, cfg)
     wA = TM._meas_weights(lin.e, lin.inlier, lin.pm_pix,
                                lin.num_ev_map >= cfg.thres_valid_pixel, cfg,

@@ -74,7 +74,7 @@ def test_solve_window_matches(scenes):
     seen = []
     tk, tgx, tgy, tst = TS.solve_window(
         *convert.state_from_numpy(k0, gx0, gy0, torch.float64, "cpu"),
-        convert.device_window_from_jax(jdev), TM.ModelConfig(**CFG),
+        convert.device_window_from_jax(jdev, device="cpu"), TM.ModelConfig(**CFG),
         TS.LMConfig(max_num_iter=3), fix_first=True,
         callback=lambda it, gx, gy, info: seen.append(it))
 
