@@ -36,7 +36,25 @@ Phases, each reporting on its own lines:
 9. resume: the host loop stopped at iteration 4 by its checkpoint
    callback, then resumed from the payload, equals the uninterrupted run
    bit for bit;
-10. CG: the fused window with ``use_cg=True`` lowers the cost.
+10. CG: the fused window with ``use_cg=True`` lowers the cost;
+11. pipeline: the port's command line (``emba_tpu_torch.cli.main``) on
+    the synthetic accuracy suite's ``ecrot_bicycle_like`` scene, built with
+    the port's ``synth`` (240x180 sensor, f = 216, 1024x512 panorama, 4.8 s,
+    1500 steps, events kept 1 in 8 as the suite did; front-end poses the
+    ground truth perturbed by the suite's random walk, at 400 Hz): a fused
+    whole-span window of up to 50 LM iterations, then the A12 kernel on
+    that window's first forming pass against its plain version; the same
+    run recording
+    (host loop, checkpoints, runtime.json), held against it; ``eval`` of the
+    refined trajectory against ground truth (refined RMSE under half the
+    initial); three sliding windows, each capturing its own CUDA graphs
+    while the next window is prepared on the worker thread, then the A12
+    kernel on the last window's first forming pass against its plain
+    version; the Poisson
+    reconstruction of the refined maps on the card against the port's f64
+    CPU result. Every run's A12 launches must equal its forming passes; the
+    fused run prints its peak device bytes per event, from which
+    ``pipeline.CLASSIC_CAP_SMALL_ROWS`` is set.
 
 Each kernel line gives its time beside its bound, the least time the card
 could take (``a12_bound``: bytes at 3.35 TB/s or f32 operations at 67
@@ -51,6 +69,7 @@ device the script exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -76,6 +95,14 @@ GATHER_REL_TOL = 1e-6
 # a few steps, which moves the trial states by rounding only.
 FUSED_COST_REL_TOL = 1e-5
 MAIN_ITERS = 8  # LM max_num_iter of the main window, as bench.py sets it
+# Run 2 (host loop, recording) against run 1 (fused) of the pipeline phase:
+# knots to relative 1e-5 of their largest magnitude after up to 50 f32
+# steps (lambda and the cost sum are f32 on the device, f64 on the host).
+PIPELINE_KNOTS_REL_TOL = 1e-5
+# The Poisson reconstruction in f32 on the card against f64 on the CPU, as
+# a fraction of the f64 result's largest magnitude: an f32 FFT solve is
+# good to a few 1e-6 at 1024x512 (1.5e-6 in f32 on the CPU).
+RECON_REL_TOL = 1e-4
 # Published peaks of one NVIDIA H100 SXM at its 700 W limit (data sheet):
 # device memory rate and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -373,21 +400,13 @@ def _window(scene, traj, n, cfg_dtype, device, sensor):
                                       cfg_dtype, device)
 
 
-def _perturbed(traj, seed, sigma):
-    from emba_tpu_torch import spline
-
-    steps = np.random.default_rng(seed).normal(size=(traj.num_knots, 3)) * sigma
-    walk = np.cumsum(steps, axis=0)
-    walk -= walk[0]
-    return dataclasses.replace(traj, knots=spline._np_exp(walk) @ traj.knots)
-
-
 def phase_reference(device):
     """Small window: GPU f32 (kernel) against the CPU f64 plain path."""
     import torch
 
     from emba_tpu_torch import model as M
     from emba_tpu_torch import solver, synth
+    from emba_tpu_torch.probes.suite_run import perturbed
 
     sensor = synth.default_sensor(48, 48, f=44.0)
     scene = synth.generate(np.random.default_rng(11), sensor, pano_width=128,
@@ -395,7 +414,7 @@ def phase_reference(device):
                            num_steps=120, motion_amp=0.3)
     cfg = M.ModelConfig(c_th=0.2, pano_width=128, pano_height=64,
                         thres_valid_pixel=3, alpha=2.0)
-    traj0 = _perturbed(scene.traj, 5, 0.01)
+    traj0 = perturbed(scene.traj, np.random.default_rng(5), 0.01)
     runs = {}
     for dev_name, dt in (("cpu", torch.float64), (device, torch.float32)):
         dev = _window(scene, traj0, len(scene.t), dt, dev_name, sensor)
@@ -492,11 +511,12 @@ def phase_main(device):
                 host=(knots, Gx, Gy, st))
 
 
-def phase_window_kernel(ctx):
-    """The A12 kernel on the main window's own linearization at the start
-    state (the first forming pass's inputs), against its plain version, and
-    the window's occupancy: rows with a weighted measurement, the largest
-    row, distinct (i_c, i_p) keys. Returns the case's numbers."""
+def phase_window_kernel(ctx, name="real window", graphed=True):
+    """The A12 kernel on a window's own linearization at its start state
+    (the first forming pass's inputs; ``ctx`` holds ``dev``, ``cfg`` and
+    ``start``), against its plain version, and the window's occupancy: rows
+    with a weighted measurement, the largest row, distinct (i_c, i_p) keys.
+    Returns the case's numbers."""
     import torch
 
     from emba_tpu_torch.probes.a12_parts import forming_inputs
@@ -508,13 +528,13 @@ def phase_window_kernel(ctx):
     counts = torch.bincount(pm_pix[used].long(), minlength=r_pad)
     keys = torch.unique(i_c[used].long() * knots + i_p[used].long())
     back = (i_c[used] - i_p[used]).long()
-    print(f"window occupancy: {n} measurements, {int(used.sum())} with weight > 0; "
+    print(f"{name} occupancy: {n} measurements, {int(used.sum())} with weight > 0; "
           f"rows with >= 1 of them {int((counts > 0).sum())} of {r_pad}, largest row "
           f"{int(counts.max())}; distinct (i_c, i_p) keys {keys.numel()} of "
           f"{knots * knots}; i_c - i_p in [{int(back.min())}, {int(back.max())}]",
           flush=True)
-    return check_kernel_case(f"real window N={n} K={knots} order={order}", args,
-                             r_pad, knots, order, exact=True, graphed=True)
+    return check_kernel_case(f"{name} N={n} K={knots} order={order}", args,
+                             r_pad, knots, order, exact=True, graphed=graphed)
 
 
 def _reset_peak_memory():
@@ -666,6 +686,183 @@ def phase_cg(ctx):
     _require(launches == st.form_passes, "cg: kernel launches != forming passes")
 
 
+def _cli_run(name, argv):
+    """One ``cli.main(["run", ...])`` on the card
+    (``probes.suite_run.measured_run``: graph and allocator caches emptied,
+    peaks reset, A12 launches counted from 0). Prints the run's windows,
+    iterations, events/s, wall, per-window set-up, peak memory and launches
+    against forming passes; gates launches, costs and finiteness. Returns
+    (RunResult, summary dict)."""
+    from emba_tpu_torch.probes.suite_run import measured_run
+
+    res, summary = measured_run(argv)
+    print(f"pipeline {name}: " + json.dumps(summary), flush=True)
+    launches, forms = summary["a12_launches"], summary["forming_passes"]
+    stats = res.window_stats
+    _require(launches == forms,
+             f"pipeline {name}: {launches} A12 launches != {forms} forming passes")
+    for st in stats:
+        costs = [r["cost_min"] for r in st.iterations] + [r["cost_new"]
+                                                          for r in st.iterations]
+        _require(np.isfinite(costs).all(), f"pipeline {name}: non-finite cost")
+        _require(min(costs) < st.iterations[0]["cost_min"],
+                 f"pipeline {name}: the cost did not fall in a window")
+    _require(np.isfinite(res.trajectory.knots).all() and np.isfinite(res.gx).all()
+             and np.isfinite(res.gy).all(), f"pipeline {name}: NaN/Inf in the result")
+    return res, summary
+
+
+@contextlib.contextmanager
+def _window_inputs(keep):
+    """Within the scope, the pipeline's window solve records the inputs of
+    the windows whose ids are in ``keep``: {win_id: {"dev", "cfg", "state"}},
+    the device window as uploaded, the model configuration and the
+    arguments from which the solve converts its start state (host arrays,
+    so that the run's device memory stays as it was)."""
+    from emba_tpu_torch import pipeline
+
+    got = {}
+    solve = pipeline.EmbaPipeline._solve
+
+    def recording(self, win_id, num_events, seg_knots, dev, mcfg, *rest):
+        if win_id in keep:
+            got[win_id] = dict(dev=dev, cfg=mcfg, state=(
+                np.array(seg_knots), self.gx.copy(), self.gy.copy(), self.dtype,
+                self.device))
+        return solve(self, win_id, num_events, seg_knots, dev, mcfg, *rest)
+
+    pipeline.EmbaPipeline._solve = recording
+    try:
+        yield got
+    finally:
+        pipeline.EmbaPipeline._solve = solve
+
+
+def _pipeline_window_kernel(name, windows):
+    """The A12 kernel on the first forming pass of a pipeline window (the
+    only window recorded in ``windows``), exact, against its plain version;
+    the recorded inputs are freed after. Returns the case's numbers."""
+    import torch
+
+    from emba_tpu_torch import convert
+
+    (ctx,) = windows.values()
+    windows.clear()
+    ctx["start"] = convert.state_from_numpy(*ctx.pop("state"))
+    case = phase_window_kernel(ctx, name=name, graphed=False)
+    del ctx
+    torch.cuda.empty_cache()
+    return case
+
+
+def _accepts(stats):
+    return "".join("A" if r["cost_new"] < r["cost_min"] else "r" for r in stats.iterations)
+
+
+def phase_pipeline(device):
+    """The port's CLI on the suite row (see the module docstring, phase 11).
+    Returns ({run: A12 launches}, the largest absolute error of the A12
+    kernel against its plain version on the recorded windows)."""
+    import tempfile
+
+    import torch
+
+    from emba_tpu_torch import cli, recon, spline
+    from emba_tpu_torch import io as eio
+    from emba_tpu_torch.pipeline import CLASSIC_CAP_SMALL_ROWS
+    from emba_tpu_torch.probes.suite_run import (CAP_MEMORY_SHARE, CARD_BYTES, cap_from,
+                                                 suite_argv, write_suite_scene)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        n_scene, n_kept, p = write_suite_scene(d)
+        print(f"pipeline: suite row ecrot_bicycle_like, {n_scene} events rendered, "
+              f"{n_kept} kept; scene files in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        argv = suite_argv(p)
+
+        with _window_inputs({0}) as windows:
+            fused, s1 = _cli_run("run 1 (fused, whole span)", argv)
+        st1 = fused.window_stats[0]
+        cases = [_pipeline_window_kernel("pipeline run 1 window 0", windows)]
+        _require(s1["windows"] == 1 and st1.lm_mode == "fused",
+                 f"run 1: {s1['windows']} windows, lm_mode {st1.lm_mode}")
+        _require(st1.setup_s > 0, "run 1: the window did not capture its graphs")
+
+        out = os.path.join(d, "rec")
+        host, s2 = _cli_run("run 2 (recording, host loop)", argv + ["--out", out])
+        st2 = host.window_stats[0]
+        with open(os.path.join(out, "final_results", "runtime.json")) as f:
+            rt = json.load(f)
+        dk = float(np.max(np.abs(host.trajectory.knots - fused.trajectory.knots))
+                   / np.max(np.abs(fused.trajectory.knots)))
+        print(f"pipeline run 2 vs run 1: iterations {len(st2.iterations)} vs "
+              f"{len(st1.iterations)}; accepts {_accepts(st2)} vs {_accepts(st1)}; "
+              f"knots rel {dk:.3e}; runtime.json lm_mode {rt['lm_mode']}, total_s "
+              f"{rt['total_s']:.4f}, phases_s {json.dumps(rt['phases_s'])}, "
+              f"phase_counts {json.dumps(rt['phase_counts'])}, window_prep_s "
+              f"{rt['window_prep_s']}", flush=True)
+        _require(rt["lm_mode"] == ["host"], f"run 2: runtime.json lm_mode {rt['lm_mode']}")
+        _require(len(st2.iterations) == len(st1.iterations),
+                 "run 2: iteration count differs from run 1")
+        _require(_accepts(st2) == _accepts(st1), "run 2: accept sequence differs from run 1")
+        _require(dk <= PIPELINE_KNOTS_REL_TOL,
+                 f"run 2: knots rel {dk:.3e} > {PIPELINE_KNOTS_REL_TOL:.0e}")
+        per_ev = max(s1["bytes_per_event_reserved"], s2["bytes_per_event_reserved"])
+        print(f"pipeline runs 1-2: classic-window cap estimate from these runs "
+              f"{cap_from(per_ev)} events ({CAP_MEMORY_SHARE} x {CARD_BYTES:.0f} bytes / "
+              f"{per_ev:.1f} bytes an event reserved, the larger of the fused and the "
+              "recording run; it counts the map-sized buffers per event, so it errs "
+              "low: probes/suite_run.py measures a window near the cap; the device "
+              f"reports {torch.cuda.get_device_properties(0).total_memory} bytes); "
+              f"pipeline.CLASSIC_CAP_SMALL_ROWS {CLASSIC_CAP_SMALL_ROWS}", flush=True)
+
+        # run 3: eval of run 1's refined trajectory, and of the start the
+        # pipeline fits to the front-end poses at the same knot times
+        times, rots = eio.load_tum_trajectory(p["frontend.txt"])
+        m = (times > 0.1) & (times < 4.7)
+        start = spline.Trajectory.from_poses(times[m], rots[m], 0.1, 4.7, 0.05)
+        rmse = {}
+        for name, traj in (("initial", start), ("refined", fused.trajectory)):
+            path = os.path.join(d, f"{name}.txt")
+            traj.write_tum(path)
+            rmse[name] = cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])
+        r0, r1 = (rmse[k]["rotation_rmse_deg"] for k in ("initial", "refined"))
+        cost0, cost1 = st1.iterations[0]["cost_min"], min(
+            [r["cost_min"] for r in st1.iterations] + [r["cost_new"]
+                                                       for r in st1.iterations])
+        print(f"pipeline run 3 (eval): rotation RMSE {r0:.4f} -> {r1:.4f} deg over "
+              f"{rmse['refined']['num_poses']} knots; cost {cost0:.6g} -> {cost1:.6g}; "
+              "the suite's row (reference formulation, emba_tpu on the same scene "
+              "and 4M-event cut): 1.89 -> 0.26 deg", flush=True)
+        _require(np.isfinite([r0, r1]).all() and r1 < 0.5 * r0,
+                 f"run 3: refined RMSE {r1:.4f} not under half the initial {r0:.4f}")
+
+        with _window_inputs({2}) as windows:
+            slide, s4 = _cli_run("run 4 (sliding windows 2.0 s, stride 1.0 s, fused)",
+                                 argv + ["--time-window-size", "2.0",
+                                         "--sliding-window-stride", "1.0"])
+        cases.append(_pipeline_window_kernel("pipeline run 4 window 2", windows))
+        _require(s4["windows"] == 3, f"run 4: {s4['windows']} windows, expected 3")
+        _require(all(m == "fused" for m in s4["lm_mode"]), f"run 4: {s4['lm_mode']}")
+        _require(all(s > 0 for s in s4["setup_s"]),
+                 f"run 4: a window did not capture its own graphs {s4['setup_s']}")
+
+        gx, gy = (torch.as_tensor(a) for a in (fused.gx, fused.gy))
+        want = recon.reconstruct_from_gradient(gx, gy)
+        got = recon.reconstruct_from_gradient(gx.to(device, torch.float32),
+                                              gy.to(device, torch.float32))
+        torch.cuda.synchronize()
+        rel = float((got.double().cpu() - want).abs().max() / want.abs().max())
+        print(f"pipeline run 5 (recon): {tuple(got.shape)} f32 on the card vs f64 on the "
+              f"CPU, rel {rel:.3e} (tolerance {RECON_REL_TOL:.0e})", flush=True)
+        _require(torch.isfinite(got).all().item() and rel <= RECON_REL_TOL,
+                 f"run 5: recon rel {rel:.3e} > {RECON_REL_TOL:.0e}")
+    launches = {"run1": s1["a12_launches"], "run2": s2["a12_launches"],
+                "run4": s4["a12_launches"]}
+    return launches, max(c[0] for c in cases)
+
+
 def main() -> int:
     import torch
 
@@ -700,6 +897,8 @@ def main() -> int:
     a12_launches = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
+    del ctx
+    pipeline_launches, pipe_err = phase_pipeline(device)
 
     # the A12 "ms" is the eager wrapper call on the synthetic main-shape case,
     # as in every earlier report; beside it the same call replayed from a
@@ -711,7 +910,7 @@ def main() -> int:
         "source": "emba_tpu_torch/kernels/csrc/a12_accum.cu",
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
         "launches": a12_launches,
-        "max_abs_err": max(syn[0], win[0]),
+        "max_abs_err": max(syn[0], win[0], pipe_err),
         "ms": syn[1],
         "plain_ms": syn[2],
         "bound_ms": syn[3],
@@ -722,6 +921,7 @@ def main() -> int:
         "window_graph_ms": win[5],
         "window_plain_ms": win[2],
         "window_bound_ms": win[3],
+        "pipeline_launches": pipeline_launches,
     }, {
         "name": "gather_sum",
         "route": "cuda",

@@ -1,0 +1,728 @@
+"""Orchestration: data loading, the sliding-window loop, artifact outputs
+(counterpart of ``emba_tpu/pipeline.py``, the reference's ``EMBA``
+orchestrator ``src/emba/emba.cpp``):
+
+* constructor duties (``emba.cpp:25-385``): event BA-interval cut and
+  systematic subsampling, front-end poses, initial map (loaded or random)
+  with a 3x3 median blur, the bearing LUT;
+* ``run()`` (``emba.cpp:400-471``): the sliding-window loop — event subset,
+  pose-subset spline fit, alignment of the new control poses to the
+  trajectory's tail, the window's LM solve (fused on CUDA graphs, or the
+  host-driven loop when recording), segment commit, window slide. The host
+  preparation of window k+1 runs on a worker thread while window k solves;
+  it is numpy only, so it makes no CUDA call while the main thread captures
+  a window's CUDA graphs;
+* data recording (params.txt, iterations.txt, per-iteration map dumps,
+  refined TUM trajectory, maps, runtime.json) and window-boundary and
+  mid-window checkpoints with resume.
+
+The device: ``EmbaPipeline(..., device=None)`` runs on the first CUDA
+device and raises when there is none; only an explicit ``device="cpu"``
+runs on the CPU. Options whose code is not ported raise
+``NotImplementedError`` naming their ROADMAP item; nothing is replaced in
+silence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from . import convert, lm as lm_mod, model, obs, pairing, recon, solver, spline
+from . import io as eio
+from .camera import PinholeCamera
+from .config import BAConfig
+from .device import require_cuda
+
+# Options whose code is not ported yet: setting one raises at run()
+# (ModelConfig raises for its own, model._LATER).
+_COMPACTION = model._LATER["compact_cap"]
+_STREAMING = model._LATER["stream_chunk"]
+_SHARDED = "ROADMAP queue 1 item 14 (sharded windows)"
+_NOT_PORTED = {
+    "coarse_to_fine": "ROADMAP queue 1 item 13 (coarse_to_fine)",
+    "multi_start": "ROADMAP queue 1 item 13 (multi_start)",
+    "stream_light": _STREAMING,
+    "super_res_height": "ROADMAP queue 1 item 11 (streamed map-only super-resolution)",
+}
+
+
+def median_blur_3x3(img: np.ndarray) -> np.ndarray:
+    """3x3 median filter with replicated borders (reference
+    ``emba.cpp:358-364`` uses cv::medianBlur on CV_32F)."""
+    p = np.pad(img.astype(np.float32), 1, mode="edge")
+    stack = np.stack(
+        [p[i : i + img.shape[0], j : j + img.shape[1]] for i in range(3) for j in range(3)]
+    )
+    return np.median(stack, axis=0).astype(np.float64)
+
+
+def auto_compact_cap(hw: int, num_events: int, thres_valid_pixel: int):
+    """The compaction cap the reference turns on by itself for large
+    panoramas (``emba_tpu/pipeline.py:47-60``): actives <= num_events /
+    thres, rounded up to a power of two; None when compaction would not
+    shrink the solve domain (panoramas below 2M pixels, dense coverage)."""
+    bound = num_events // max(1, thres_valid_pixel) + 1
+    cap = 1 << max(12, int(np.ceil(np.log2(bound))))
+    if hw >= 2 * 1024 * 1024 and cap < hw // 2:
+        return cap
+    return None
+
+
+# Largest window (events) the classic path takes: 80% of the card's 80 GB
+# over the peak device bytes per event of a fused window, rounded down to a
+# million. Measured by chip_smoke.py's pipeline phase on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit: the 1024x512 whole-span window of
+# 3,671,400 events and 93 knots peaked at 2,102 bytes an event reserved
+# (1,507 allocated), so 0.8 * 80e9 / 2102 = 30.4M. The map-sized buffers
+# are counted per event there, which errs low: near the cap, a window of
+# 29,371,700 events (probes/suite_run.py, same card) peaked at 25.0 GB
+# reserved fused and 20.4 GB recording (852 and 694 bytes an event). Row
+# spaces above 2^20 (panoramas of 1-2M pixels; from 2M the reference
+# compacts) are not measured: half the cap, for an A12 up to twice as
+# tall. Above the cap the reference streams; the port raises (ROADMAP
+# item 11).
+CLASSIC_CAP_SMALL_ROWS = 30_000_000
+CLASSIC_CAP_LARGE_ROWS = CLASSIC_CAP_SMALL_ROWS // 2
+ROWS_SMALL = 1 << 20
+
+
+def plan_model_config(
+    mcfg: model.ModelConfig,
+    cfg: BAConfig,
+    t: np.ndarray,
+    t_ba_beg: float,
+    t_ba_end: float,
+    win_size: float,
+    win_stride: float,
+    n_dev: int,
+    classic_cap_small: int = CLASSIC_CAP_SMALL_ROWS,
+    classic_cap_large: int = CLASSIC_CAP_LARGE_ROWS,
+):
+    """The reference's pre-run decisions (``emba_tpu/pipeline.py:100-157``),
+    as decisions only: where it would turn on active-pixel compaction (a
+    panorama of 2M pixels or more) or streamed forming (the largest running
+    window above the classic cap), the port raises NotImplementedError with
+    the ROADMAP item. Returns ``mcfg`` unchanged otherwise.
+
+    The largest-window count is exact: events are time-sorted, so each
+    window's count is two searchsorteds, and only window starts whose
+    window runs (the loop requires t_win_end < t_ba_end + 1e-3) enter it."""
+    if mcfg.compact_cap is None:
+        cap = auto_compact_cap(
+            mcfg.pano_width * mcfg.pano_height, len(t), mcfg.thres_valid_pixel
+        )
+        if cap is not None:
+            raise NotImplementedError(
+                f"a {mcfg.pano_width}x{mcfg.pano_height} panorama needs active-pixel "
+                f"compaction (cap {cap}): not ported yet, see {_COMPACTION}")
+
+    edges_beg = np.arange(t_ba_beg, t_ba_end, win_stride)
+    edges_beg = edges_beg[edges_beg + win_size < t_ba_end + 1e-3]
+    max_win_events = int(
+        np.max(
+            np.searchsorted(t, edges_beg + win_size + 1e-3)
+            - np.searchsorted(t, edges_beg - 1e-3)
+        )
+    ) if len(edges_beg) else len(t)
+    per_dev = max_win_events / max(1, n_dev)
+    rows = mcfg.compact_cap or (mcfg.pano_width * mcfg.pano_height)
+    classic_cap = classic_cap_small if rows <= ROWS_SMALL else classic_cap_large
+    if cfg.stream_chunk is None and per_dev > classic_cap:
+        raise NotImplementedError(
+            f"a window of {max_win_events} events is above the classic-window cap "
+            f"{classic_cap} and needs streamed forming: not ported yet, see "
+            f"{_STREAMING}")
+    return mcfg
+
+
+def _check_ported(cfg: BAConfig):
+    for name, where in _NOT_PORTED.items():
+        if getattr(cfg, name):
+            raise NotImplementedError(f"BAConfig.{name}: not ported yet, see {where}")
+    if (cfg.num_devices or 1) > 1:
+        raise NotImplementedError(
+            f"BAConfig.num_devices={cfg.num_devices}: not ported yet, see {_SHARDED}")
+
+
+def systematic_subsample(t, x, y, pol, rate: int):
+    """Keep every ``rate``-th event (reference ``emba.cpp:282-304``)."""
+    if rate < 2:
+        return t, x, y, pol
+    idx = np.arange(rate - 1, len(t), rate)
+    return t[idx], x[idx], y[idx], pol[idx]
+
+
+@dataclasses.dataclass
+class RunResult:
+    trajectory: spline.Trajectory
+    gx: np.ndarray
+    gy: np.ndarray
+    window_stats: list
+    result_dir: str | None = None
+
+
+@dataclasses.dataclass
+class _PreparedWindow:
+    """Host-side window preparation product (see ``_prepare_window``)."""
+
+    new_cps: np.ndarray  # fitted control poses for this window (pre-alignment)
+    win: pairing.EventWindow  # paired event window (pairing indices, batches)
+    seg_num_knots: int  # predicted knot count of the window segment
+    prep_s: float  # host time spent preparing
+    pushed: int  # knots this window's pushback would add
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (any device) or array -> f64 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(a, np.float64)
+
+
+class EmbaPipeline:
+    """End-to-end EMBA run over an event stream."""
+
+    def __init__(
+        self,
+        cfg: BAConfig,
+        camera: PinholeCamera,
+        events: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+        pose_times: np.ndarray,
+        pose_rotations: np.ndarray,
+        init_gx: np.ndarray | None = None,
+        init_gy: np.ndarray | None = None,
+        result_dir: str | None = None,
+        record_data: bool = False,
+        record_maps: bool = False,
+        seed: int = 0,
+        device=None,
+    ):
+        if device is None:
+            device = require_cuda()
+        device = torch.device(device)
+        if device.type == "cuda":
+            require_cuda()
+        self.device = device
+        self.cfg = cfg
+        self.camera = camera
+        self.record_data = record_data and result_dir is not None
+        self.record_maps = record_maps
+        self.result_dir = result_dir
+        self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
+        t, x, y, pol = events
+        order = np.argsort(t, kind="stable")
+        t, x, y, pol = t[order], x[order], y[order], pol[order]
+        # BA interval cut (+ time offset already applied upstream)
+        t0 = cfg.start_time + cfg.time_offset
+        t1 = cfg.stop_time + cfg.time_offset
+        m = (t >= t0 + 1e-6) & (t <= t1)
+        t, x, y, pol = t[m], x[m], y[m], pol[m]
+        self.t, self.x, self.y, self.pol = systematic_subsample(
+            t, x, y, pol, cfg.event_sampling_rate
+        )
+
+        self.pose_times = np.asarray(pose_times, np.float64)
+        self.pose_rotations = np.asarray(pose_rotations, np.float64)
+
+        # Initial map (reference emba.cpp:333-364).
+        H, W = cfg.pano_height, cfg.pano_width
+        if init_gx is None:
+            rng = np.random.default_rng(seed)
+            if cfg.use_cg:
+                init_gx = np.zeros((H, W))
+                init_gy = np.zeros((H, W))
+            else:
+                init_gx = rng.normal(0.0, 0.1 * cfg.c_th, size=(H, W))
+                init_gy = rng.normal(0.0, 0.1 * cfg.c_th, size=(H, W))
+        else:
+            H, W = init_gx.shape
+            cfg.pano_height, cfg.pano_width = H, W
+        self.gx = median_blur_3x3(np.asarray(init_gx))
+        self.gy = median_blur_3x3(np.asarray(init_gy))
+
+        self.bearing_lut = camera.bearing_lut()
+
+        # Sliding-window state (reference emba.cpp:309-331).
+        self.t_ba_beg = t0
+        self.t_ba_end = t1
+        self.win_size = cfg.window_size
+        self.win_stride = cfg.sliding_window_stride
+        self.cp_stride = int(round(cfg.sliding_window_stride / cfg.dt_knots))
+        self.traj = spline.Trajectory.empty(t0, cfg.dt_knots, cfg.spline_order)
+        self._resume_lm = None
+
+        if self.record_data:
+            eio.ensure_dir(result_dir)
+            eio.ensure_dir(os.path.join(result_dir, "final_results"))
+            for d in ("Gx_evo", "Gy_evo", "G_hsv_evo", "map_poisson_evo", "map_opt"):
+                eio.ensure_dir(os.path.join(result_dir, d))
+            self._write_params()
+            self._iter_log = open(
+                os.path.join(result_dir, "final_results", "iterations.txt"), "w"
+            )
+        else:
+            self._iter_log = None
+
+    # -- recording ----------------------------------------------------------
+
+    def _write_params(self):
+        cfg = self.cfg
+        with open(os.path.join(self.result_dir, "params.txt"), "w") as f:
+            for k, v in dataclasses.asdict(cfg).items():
+                f.write(f"{k} = {v}\n")
+
+    def _brightness(self, gx, gy) -> np.ndarray:
+        """Poisson brightness of a map pair, solved on the pipeline's device."""
+        g = [torch.as_tensor(a).to(self.device, self.dtype) for a in (gx, gy)]
+        return _host(recon.reconstruct_from_gradient(*g))
+
+    def _save_maps(self, tag: str, win_id: int, it: int, gx=None, gy=None):
+        if not (self.record_data and self.record_maps):
+            return
+        gx = _host(self.gx if gx is None else gx)
+        gy = _host(self.gy if gy is None else gy)
+        base = os.path.join(self.result_dir, tag)
+        pre = f"win_{win_id:04d}_"
+        eio.save_png(os.path.join(base, f"{pre}Gx_{it:04d}.png"), gx)
+        eio.save_png(os.path.join(base, f"{pre}Gy_{it:04d}.png"), gy)
+        hsv = eio.gradient_hsv_image(gx, gy)
+        eio.save_png(os.path.join(base, f"{pre}G_hsv_{it:04d}.png"), hsv)
+        eio.save_png(os.path.join(base, f"{pre}poisson_{it:04d}.png"),
+                     self._brightness(gx, gy))
+
+    def _save_evo(self, win_id: int, it: int, gx, gy):
+        """Per-LM-iteration evolution dumps (reference ``saveEvoData``,
+        solver.cpp:370-425): the evolving Gx/Gy/HSV images plus the Poisson
+        brightness snapshot, one file set per iteration."""
+        if not (self.record_data and self.record_maps):
+            return
+        gx, gy = _host(gx), _host(gy)
+        pre = f"win_{win_id:04d}_"
+        for d, img in (("Gx_evo", gx), ("Gy_evo", gy),
+                       ("G_hsv_evo", eio.gradient_hsv_image(gx, gy)),
+                       ("map_poisson_evo", self._brightness(gx, gy))):
+            eio.save_png(os.path.join(self.result_dir, d, f"{pre}{it:04d}.png"), img)
+
+    # -- checkpointing (new vs reference) ------------------------------------
+
+    def save_checkpoint(self, path: str, window_idx: int,
+                        lm_state: dict | None = None):
+        """Persist the BA state, with the keys of the reference's
+        checkpoint (either package resumes from the other's).
+        Window-boundary checkpoints carry the committed trajectory + maps +
+        the NEXT window index. Mid-window checkpoints (``lm_state`` from
+        :func:`solver.lm_state_dict`) also carry the in-flight LM state —
+        current seg knots, LM maps, lambda, iteration, cost_min, tol counter
+        — so an interrupted window resumes bit for bit. The write is atomic
+        (tmp + rename): a kill mid-write never corrupts the previous
+        checkpoint."""
+        payload = dict(
+            knots=self.traj.knots,
+            t_beg=self.traj.t_beg,
+            dt=self.traj.dt,
+            order=self.traj.order,
+            gx=np.asarray(self.gx),
+            gy=np.asarray(self.gy),
+            window_idx=window_idx,
+        )
+        if lm_state is not None:
+            payload.update(
+                mid_window=True,
+                lm_knots=lm_state["knots"],
+                lm_gx=lm_state["gx"],
+                lm_gy=lm_state["gy"],
+                lm_lam=lm_state["lam"],
+                lm_cost_min=lm_state["cost_min"],
+                lm_count_tol_sat=lm_state["count_tol_sat"],
+                lm_it=lm_state["it"],
+                lm_cost_decreased=lm_state["cost_decreased"],
+            )
+        tmp = path + ".tmp.npz"  # np.savez appends .npz to bare names
+        np.savez_compressed(tmp, **payload)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str) -> int:
+        z = np.load(path)
+        self.traj = spline.Trajectory(
+            t_beg=float(z["t_beg"]),
+            dt=float(z["dt"]),
+            knots=z["knots"],
+            order=int(z["order"]),
+        )
+        self.gx, self.gy = z["gx"], z["gy"]
+        if "mid_window" in z and bool(z["mid_window"]):
+            # in-flight LM state: run() resumes INSIDE this window
+            self._resume_lm = dict(
+                knots=z["lm_knots"],
+                gx=z["lm_gx"],
+                gy=z["lm_gy"],
+                lam=float(z["lm_lam"]),
+                cost_min=float(z["lm_cost_min"]),
+                count_tol_sat=int(z["lm_count_tol_sat"]),
+                it=int(z["lm_it"]),
+                cost_decreased=bool(z["lm_cost_decreased"]),
+            )
+        else:
+            self._resume_lm = None
+        return int(z["window_idx"])
+
+    # -- window preparation (host-side, prefetchable) -----------------------
+
+    def _prepare_window(
+        self,
+        count_window: int,
+        first_window: bool,
+        t_win_beg: float,
+        t_win_end: float,
+        t_pose_beg: float,
+        t_pose_end: float,
+        base_num_knots: int,
+        already_pushed: bool = False,
+    ) -> _PreparedWindow:
+        """All host-side work for one window that does NOT depend on any
+        earlier window's solution: event-subset extraction (reference
+        ``getEventSubset``, emba.cpp:473-510), front-end pose-subset spline
+        fitting (emba.cpp:412-417), and the event pairing/batching
+        (``pairing.build_window``). Numpy only: it runs on the worker thread
+        while the previous window solves, and must make no CUDA call (a
+        CUDA call from another thread breaks a CUDA-graph capture).
+
+        ``base_num_knots``: trajectory knot count before this window's
+        pushback (exact at submission time — the prefetch is submitted after
+        the current window's pushback). ``already_pushed``: the window's
+        pushback is already in the trajectory (mid-window checkpoint
+        resume), so the segment knot count is ``base - idx_cp_beg``.
+        """
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        lo = np.searchsorted(self.t, t_win_beg + 1e-3, side="right")
+        hi = np.searchsorted(self.t, t_win_end - 1e-3, side="right")
+        ev = (self.t[lo:hi], self.x[lo:hi], self.y[lo:hi], self.pol[lo:hi])
+
+        pm = (self.pose_times > t_pose_beg) & (self.pose_times < t_pose_end)
+        new_cps = spline.fit_knots_long(
+            self.pose_times[pm],
+            self.pose_rotations[pm],
+            t_pose_beg,
+            t_pose_end,
+            cfg.dt_knots,
+            cfg.spline_order,
+        )
+        pushed = len(new_cps) if first_window else len(new_cps) - 1
+        idx_cp_beg = count_window * self.cp_stride
+        seg_num_knots = (
+            base_num_knots + (0 if already_pushed else pushed) - idx_cp_beg
+        )
+        seg_t_beg = self.t_ba_beg + idx_cp_beg * cfg.dt_knots
+
+        def loc(tq):
+            return spline.locate(
+                tq, seg_t_beg, cfg.dt_knots, seg_num_knots, cfg.spline_order
+            )
+
+        win = pairing.build_window(
+            ev[0], ev[1], ev[2], ev[3], self.camera.width, loc,
+            cfg.event_batch_size,
+        )
+        return _PreparedWindow(
+            new_cps=new_cps,
+            win=win,
+            seg_num_knots=seg_num_knots,
+            prep_s=time.perf_counter() - t0,
+            pushed=pushed,
+        )
+
+    @staticmethod
+    def _stats_from_trace(num_events, n_it, conv, trace, total_s, loop):
+        """LMStats for a fused window from its per-iteration trace
+        (lm.TRACE_COLS) and its ``lm.LoopStats``. ``count_form`` is every
+        forming pass the call ran (``loop.form_passes``: on the card the
+        capturing call's eager warm-up pass too), so it equals the A12
+        kernel's launches; the per-form lists hold the loop's own passes.
+        Only the total wall time is measured (one device program: phase
+        times stay 0)."""
+        n_it = int(n_it)
+        tr = trace.detach().to("cpu", torch.float64).numpy()
+        stats = solver.LMStats(num_events=num_events)
+        stats.converged = bool(conv)
+        stats.count_objective = n_it
+        stats.count_solve = n_it
+        stats.iterations = lm_mod.trace_records(tr, n_it)
+        stats.active_px_per_form, stats.dropped_meas_per_form = (
+            lm_mod.forming_stats_from_trace(tr, n_it)
+        )
+        stats.count_form = loop.form_passes
+        stats.setup_s = loop.setup_s
+        stats.time_total_s = total_s
+        return stats
+
+    # -- the sliding-window loop (reference Run(), emba.cpp:400-471) --------
+
+    def run(self, resume_from: str | None = None) -> RunResult:
+        cfg = self.cfg
+        _check_ported(cfg)
+        mcfg = plan_model_config(
+            cfg.model_config(), cfg, self.t, self.t_ba_beg, self.t_ba_end,
+            self.win_size, self.win_stride, 1,
+        )
+        lm = cfg.lm_config()
+
+        t_win_beg = self.t_ba_beg
+        t_win_end = t_win_beg + self.win_size
+        t_pose_beg, t_pose_end = t_win_beg, t_win_end
+        first_window = True
+        count_window = 0
+        pose_latest = None
+        window_stats = []
+
+        resume_lm = None
+        if resume_from:
+            count_window = self.load_checkpoint(resume_from)
+            # mid-window checkpoint: count_window is the IN-FLIGHT window;
+            # its pushback/alignment are already in the restored trajectory
+            # and the LM resumes from the stored schedule state
+            resume_lm = self._resume_lm
+            first_window = count_window == 0
+            t_win_beg += count_window * self.win_stride
+            t_win_end += count_window * self.win_stride
+            t_pose_beg = t_win_end - self.win_stride if count_window else t_win_beg
+            t_pose_end = t_win_end
+            if not first_window:
+                tq = t_win_end - self.win_stride - 1e-6
+                pose_latest = (tq, np.asarray(self.traj.evaluate(tq))[0])
+
+        # Window pipelining: the host-side preparation of window k+1 (event
+        # subset, pose-subset spline fit, event pairing — none of which read
+        # window k's solution) runs on a worker thread overlapped with
+        # window k's solve. Single worker => preparations stay ordered.
+        executor = ThreadPoolExecutor(max_workers=1)
+        self._prep_s, self._prep_wait_s = [], []
+        next_fut = executor.submit(
+            self._prepare_window, count_window, first_window, t_win_beg,
+            t_win_end, t_pose_beg, t_pose_end, self.traj.num_knots,
+            resume_lm is not None,
+        )
+        try:
+            while t_win_end < self.t_ba_end + 1e-3:
+                tw0 = time.perf_counter()
+                prep = next_fut.result()
+                self._prep_wait_s.append(time.perf_counter() - tw0)
+                self._prep_s.append(prep.prep_s)
+
+                new_cps = prep.new_cps
+                if resume_lm is None:
+                    if not first_window:
+                        # align to the tail of the current trajectory
+                        # (emba.cpp:420-428)
+                        R0_inv = new_cps[0].T
+                        new_cps = np.einsum(
+                            "ij,jk,nkl->nil", pose_latest[1], R0_inv, new_cps
+                        )
+                        new_cps = new_cps[1:]  # drop the shared first knot
+                    self.traj.pushback(new_cps)
+                # else: mid-window resume — the checkpointed trajectory
+                # already contains this window's aligned pushback
+
+                idx_cp_beg = count_window * self.cp_stride
+                seg = self.traj.segment(idx_cp_beg, self.traj.num_knots)
+                if seg.num_knots != prep.seg_num_knots:
+                    raise RuntimeError(
+                        f"window {count_window}: segment has {seg.num_knots} knots, "
+                        f"its preparation {prep.seg_num_knots}")
+
+                # Prefetch the NEXT window's preparation before solving this
+                # one (the knot base count is exact now that pushback has
+                # happened).
+                nt_win_beg = t_win_beg + self.win_stride
+                nt_win_end = t_win_end + self.win_stride
+                if nt_win_end < self.t_ba_end + 1e-3:
+                    next_fut = executor.submit(
+                        self._prepare_window, count_window + 1, False,
+                        nt_win_beg, nt_win_end, t_win_end, nt_win_end,
+                        self.traj.num_knots,
+                    )
+
+                # The window's upload, on this thread.
+                win = prep.win
+                dev = model.DeviceWindow.from_window(
+                    win, self.bearing_lut, self.camera.width, self.dtype, self.device)
+                win_id = count_window
+                knots, gx_j, gy_j, stats, final_cost = self._solve(
+                    win_id, win.num_events, seg.knots, dev, mcfg, lm, first_window,
+                    resume_lm)
+                resume_lm = None  # consumed by the resumed window
+                if obs.nan_checks_enabled():
+                    obs.check_finite(f"window {win_id}", knots=knots, gx=gx_j, gy=gy_j,
+                                     cost=final_cost)
+                self.gx, self.gy = _host(gx_j), _host(gy_j)
+                seg = dataclasses.replace(seg, knots=_host(knots))
+                self.traj.replace_with(seg, seg.num_knots, 0, idx_cp_beg)
+                window_stats.append(stats)
+                self._save_maps("map_opt", win_id, len(stats.iterations))
+
+                # Latest pose for the next window's alignment
+                # (emba.cpp:458-460).
+                tq = t_win_end - 1e-6
+                pose_latest = (tq, np.asarray(self.traj.evaluate(tq))[0])
+
+                # Slide (emba.cpp:512-532).
+                t_win_beg += self.win_stride
+                t_pose_beg = t_win_end
+                t_win_end += self.win_stride
+                t_pose_end = t_win_end
+                count_window += 1
+                first_window = False
+
+                if self.record_data:
+                    self.save_checkpoint(
+                        os.path.join(self.result_dir, "final_results",
+                                     "checkpoint.npz"),
+                        count_window,
+                    )
+        finally:
+            executor.shutdown(wait=True, cancel_futures=True)
+
+        if self.record_data:
+            self.traj.write_tum(
+                os.path.join(
+                    self.result_dir, "final_results", "trajectory_refined.txt"
+                ),
+                time_offset=cfg.time_offset,
+            )
+            eio.save_map_bin(
+                os.path.join(self.result_dir, "final_results", "Gx.bin"),
+                os.path.join(self.result_dir, "final_results", "Gy.bin"),
+                self.gx,
+                self.gy,
+            )
+            self._write_runtime(window_stats)
+            self._iter_log.close()
+
+        return RunResult(
+            trajectory=self.traj,
+            gx=self.gx,
+            gy=self.gy,
+            window_stats=window_stats,
+            result_dir=self.result_dir,
+        )
+
+    def _solve(self, win_id, num_events, seg_knots, dev, mcfg, lm, first_window,
+               resume_lm):
+        """One window's LM solve on the path the configuration selects.
+        Returns (knots, Gx, Gy, LMStats, final cost)."""
+        cfg = self.cfg
+        fused = cfg.fused_lm if cfg.fused_lm is not None else not self.record_data
+        if resume_lm is not None:
+            # a mid-window resume restores host-schedule state; the fused
+            # loop carries its own: the host loop gives the same results
+            fused = False
+        # Fused-window fence: beyond the cap, the host-driven loop (recorded
+        # in runtime.json lm_mode).
+        fallback = (fused and cfg.fused_event_cap is not None
+                    and num_events > cfg.fused_event_cap)
+        fused = fused and not fallback
+        knots0, gx0, gy0 = convert.state_from_numpy(
+            seg_knots, self.gx, self.gy, self.dtype, self.device)
+
+        if fused:
+            loop = lm_mod.LoopStats()
+            t0 = time.perf_counter()
+            knots, gx_j, gy_j, cost_min, n_it, conv, trace = solver.solve_window_fused(
+                knots0, gx0, gy0, dev, mcfg, cfg.damping_factor, cfg.tol_fun,
+                fix_first=first_window, use_cg=cfg.use_cg,
+                max_num_iter=cfg.max_num_iter,
+                num_times_tol_fun_sat=cfg.num_times_tol_fun_sat,
+                return_trace=True, stats=loop,
+            )
+            stats = self._stats_from_trace(num_events, n_it, conv, trace,
+                                           time.perf_counter() - t0, loop)
+            final_cost = float(cost_min)
+        else:
+            def cb(it, gx, gy, info):
+                if self._iter_log is not None:
+                    self._iter_log.write(
+                        f"win {win_id} iter {it} log10(lambda)="
+                        f"{np.log10(info['lam']):.2f} cost_min={info['cost_min']}\n"
+                    )
+                self._save_evo(win_id, it, gx, gy)
+
+            # Mid-window LM checkpointing (host loops only; the fused loop
+            # has no host re-entry).
+            ck_every = cfg.lm_checkpoint_every if self.record_data else 0
+            ck_cb = None
+            if ck_every:
+                ck_path = os.path.join(self.result_dir, "final_results",
+                                       "checkpoint.npz")
+
+                def ck_cb(state):
+                    self.save_checkpoint(ck_path, win_id, lm_state=state)
+
+            knots, gx_j, gy_j, stats = solver.solve_window(
+                knots0, gx0, gy0, dev, mcfg, lm,
+                damping_factor=cfg.damping_factor, fix_first=first_window,
+                use_cg=cfg.use_cg, callback=cb, checkpoint_cb=ck_cb,
+                checkpoint_every=ck_every, resume_state=resume_lm,
+            )
+            last = stats.iterations[-1] if stats.iterations else None
+            final_cost = min(last["cost_min"], last["cost_new"]) if last else 0.0
+        stats.lm_mode = ("fused" if fused else "host") + (
+            "(fused-cap-fallback)" if fallback else "")
+        return knots, gx_j, gy_j, stats, final_cost
+
+    def _write_runtime(self, window_stats):
+        """Per-phase runtime logs (reference runtime_*.txt,
+        solver.cpp:147-151, 218-222, 290-294) + events/s, with the keys of
+        the reference's runtime.json plus ``setup_s``."""
+        agg = {"form": 0.0, "solve": 0.0, "objective": 0.0}
+        counts = {"form": 0, "solve": 0, "objective": 0}
+        n_ev = 0
+        for st in window_stats:
+            agg["form"] += st.time_form_s
+            agg["solve"] += st.time_solve_s
+            agg["objective"] += st.time_objective_s
+            counts["form"] += st.count_form
+            counts["solve"] += st.count_solve
+            counts["objective"] += st.count_objective
+            n_ev += st.num_events
+        out = {
+            "phases_s": agg,
+            "phase_counts": counts,
+            "num_events": n_ev,
+            # host loop: phase times end in a device synchronization; fused
+            # mode reports total_s only (phases_s stay 0)
+            "sync_method": window_stats[-1].sync_method if window_stats else "",
+            "total_s": sum(st.time_total_s for st in window_stats),
+            # per window: the fused loop's warm-up and CUDA-graph captures
+            # (each window's own event count gives it graphs of its own)
+            "setup_s": [st.setup_s for st in window_stats],
+            # Np per form call per window (reference solver.cpp:283-293)
+            "num_active_pixels": [st.active_px_per_form for st in window_stats],
+            "dropped_measurements": [
+                st.dropped_meas_per_form for st in window_stats
+            ],
+            "overflow_active_pixels": [
+                st.overflow_active_pixels for st in window_stats
+            ],
+            # Window pipelining: host prep cost per window vs the time the
+            # main loop actually blocked on it
+            "window_prep_s": self._prep_s,
+            "window_prep_wait_s": self._prep_wait_s,
+            # LM execution mode per window ("(fused-cap-fallback)" marks
+            # the fused->host fence)
+            "lm_mode": [st.lm_mode for st in window_stats],
+            "events_per_second": window_stats[-1].events_per_second()
+            if window_stats
+            else {},
+        }
+        with open(
+            os.path.join(self.result_dir, "final_results", "runtime.json"), "w"
+        ) as f:
+            json.dump(out, f, indent=2)

@@ -41,21 +41,28 @@ class LMConfig:
 @dataclasses.dataclass
 class LMStats:
     """Per-window instrumentation: per-iteration records, phase times and
-    counts, the active-pixel count per forming pass."""
+    counts, the active-pixel count per forming pass. ``setup_s`` is the
+    fused window's warm-up and graph captures (``lm.LoopStats.setup_s``; 0
+    for the host loop and for a fused call that reused its graphs);
+    ``lm_mode`` the execution mode the pipeline chose for the window."""
 
     iterations: list = dataclasses.field(default_factory=list)
     time_form_s: float = 0.0
     time_solve_s: float = 0.0
     time_objective_s: float = 0.0
     time_total_s: float = 0.0
+    setup_s: float = 0.0
     count_form: int = 0
     count_solve: int = 0
     count_objective: int = 0
     num_events: int = 0
     active_px_per_form: list = dataclasses.field(default_factory=list)
     dropped_meas_per_form: list = dataclasses.field(default_factory=list)
+    # active pixels beyond the compaction cap (always 0: no compaction yet)
+    overflow_active_pixels: int = 0
     converged: bool = False
     sync_method: str = "device-synchronize"
+    lm_mode: str = ""
 
     @property
     def num_active_pixels(self) -> int:

@@ -1,7 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports emba_tpu_torch
-and its kernel and probe modules, solves a tiny window on the CPU through
-the host loop and the fused loop, and must have loaded neither ``jax`` nor
-the JAX package ``emba_tpu``."""
+and its kernel, probe and application modules, solves a tiny window on the
+CPU through the host loop and the fused loop, runs the CLI's ``synth`` and
+``run --device cpu`` on a tiny scene, and must have loaded neither ``jax``
+nor the JAX package ``emba_tpu``."""
 
 import os
 import subprocess
@@ -39,6 +40,20 @@ from emba_tpu_torch.probes import gather_probe, profile_fused
 payload = torch.ones((2, 300))
 idx = torch.zeros((2, gather_sum.MC), dtype=torch.int32)
 assert gather_sum.gather_sum(payload, idx, True).tolist() == [[512.0], [512.0]]
+import os, tempfile
+from emba_tpu_torch import cli, config, io, obs, pipeline, recon, rosbag
+with tempfile.TemporaryDirectory() as d:
+    cli.main(["synth", "--out", d, "--sensor", "24", "--pano-height", "32",
+              "--duration", "0.3", "--steps", "60", "--c-th", "0.2"])
+    res = cli.main(["run", "--events", os.path.join(d, "events.npz"),
+                    "--poses", os.path.join(d, "traj_gt.txt"),
+                    "--calib", os.path.join(d, "calib.yaml"),
+                    "--map-gx", os.path.join(d, "Gx.bin"),
+                    "--map-gy", os.path.join(d, "Gy.bin"), "--out", os.path.join(d, "r"),
+                    "--start-time", "0.02", "--stop-time", "0.28", "--c-th", "0.2",
+                    "--max-num-iter", "1", "--thres-valid-pixel", "2", "--device", "cpu"])
+    assert len(res.window_stats) == 1 and np.isfinite(res.trajectory.knots).all()
+    assert os.path.exists(os.path.join(d, "r", "final_results", "runtime.json"))
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "emba_tpu") or m.startswith(("jax.", "jaxlib", "emba_tpu.")))
 print("JAX_MODULES", loaded)

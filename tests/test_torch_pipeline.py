@@ -1,0 +1,378 @@
+"""The port's sliding-window pipeline and CLI against the JAX package's on
+the CPU in f64, on the tiny scene of ``tests/test_pipeline.py`` (40x40
+sensor, 128x64 panorama, 0.6 s, made by the CLI's ``synth`` from seed 0):
+one whole-span window and two sliding windows, each fused and through the
+host loop; checkpoints and resume within the port and across packages;
+the CLI end to end; the options that are not ported yet; the fused-cap
+fallback.
+
+Tolerances: against JAX the same window count, knot count, iterations per
+window, active pixels per forming pass and LM mode, and knots and maps to
+relative 1e-8 of their largest magnitude (rounding differences grow through
+each Cholesky solve and state update, as in ``test_torch_solver.py``);
+within the port a resumed run equals the uninterrupted one bit for bit.
+Each JAX run is made once per module.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import emba_tpu.config as JC
+import emba_tpu.pipeline as JP
+from emba_tpu import cli as jcli
+from emba_tpu.camera import load_camera_yaml as j_load_camera_yaml
+from emba_tpu_torch import cli as tcli
+from emba_tpu_torch import config as TC
+from emba_tpu_torch import io as tio
+from emba_tpu_torch import kernels
+from emba_tpu_torch import pipeline as TP
+from emba_tpu_torch.camera import load_camera_yaml
+
+REL = 1e-8
+ONE = dict(start_time=0.02, stop_time=0.58, c_th=0.1, alpha=0.5, max_num_iter=6,
+           dt_knots=0.05, dtype="float64", outlier_dp_norm=3.0, thres_valid_pixel=3)
+TWO = dict(start_time=0.0, stop_time=0.6, c_th=0.1, alpha=0.5, max_num_iter=4,
+           dt_knots=0.05, dtype="float64", time_window_size=0.3,
+           sliding_window_stride=0.3)
+CASES = {"one": ONE, "two": TWO}
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are tiny: torch's intra-op threads only wait on one
+    another (and on the other test workers), which made these tests up to
+    10x slower on a loaded machine. One thread for this file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+def rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want))) / max(float(np.max(np.abs(want))), 1e-300)
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    out = tmp_path_factory.mktemp("tsynth")
+    tcli.main(["synth", "--out", str(out), "--sensor", "40", "--pano-height", "64",
+               "--duration", "0.6", "--steps", "300", "--motion", "0.2", "--c-th", "0.1"])
+    t, x, y, pol, _ = tio.load_events_npz(str(out / "events.npz"))
+    times, rots = tio.load_tum_trajectory(str(out / "traj_gt.txt"))
+    gx, gy = tio.load_map_bin(str(out / "Gx.bin"), str(out / "Gy.bin"))
+    return dict(dir=out, events=(t, x, y, pol), poses=(times, rots), maps=(gx, gy))
+
+
+def port_pipe(ds, cfg, device="cpu", **kw):
+    gx, gy = ds["maps"]
+    return TP.EmbaPipeline(cfg, load_camera_yaml(str(ds["dir"] / "calib.yaml")),
+                           ds["events"], *ds["poses"], init_gx=gx.copy(),
+                           init_gy=gy.copy(), device=device, **kw)
+
+
+def jax_pipe(ds, cfg, **kw):
+    gx, gy = ds["maps"]
+    return JP.EmbaPipeline(cfg, j_load_camera_yaml(str(ds["dir"] / "calib.yaml")),
+                           ds["events"], *ds["poses"], init_gx=gx.copy(),
+                           init_gy=gy.copy(), **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(dataset):
+    """JAX's pipeline for each (case, mode), run once."""
+    return {(case, mode): jax_pipe(dataset, JC.BAConfig(**kw, fused_lm=mode == "fused"))
+            .run()
+            for case, kw in CASES.items() for mode in ("fused", "host")}
+
+
+def assert_runs_match(t, j):
+    assert len(t.window_stats) == len(j.window_stats)
+    assert t.trajectory.num_knots == j.trajectory.num_knots
+    for ts, js in zip(t.window_stats, j.window_stats):
+        assert len(ts.iterations) == len(js.iterations)
+        assert ts.active_px_per_form == js.active_px_per_form
+        assert ts.dropped_meas_per_form == js.dropped_meas_per_form
+        assert ts.lm_mode == js.lm_mode
+        assert ts.num_events == js.num_events
+        assert [r["cost_new"] < r["cost_min"] for r in ts.iterations] == [
+            r["cost_new"] < r["cost_min"] for r in js.iterations]
+    assert rel_err(t.trajectory.knots, j.trajectory.knots) <= REL
+    assert rel_err(t.gx, j.gx) <= REL and rel_err(t.gy, j.gy) <= REL
+
+
+@pytest.mark.parametrize("mode", ["fused", "host"])
+@pytest.mark.parametrize("case", ["one", "two"])
+def test_pipeline_matches_jax(dataset, jax_runs, case, mode):
+    kernels.reset_launch_counts()
+    res = port_pipe(dataset, TC.BAConfig(**CASES[case], fused_lm=mode == "fused")).run()
+    assert_runs_match(res, jax_runs[case, mode])
+    assert len(res.window_stats) == (1 if case == "one" else 2)
+    for st in res.window_stats:
+        # the CPU runs the kernel's plain version: no launch; one forming
+        # pass per entry of the per-form lists
+        assert st.count_form == len(st.active_px_per_form) and st.setup_s == 0.0
+    assert kernels.launch_counts()["a12_accum"] == 0
+
+
+def test_cli_end_to_end_matches_jax(dataset, tmp_path, capsys):
+    """synth -> run -> eval through both CLIs on the same files: the port's
+    runtime.json has JAX's keys plus setup_s, and its eval RMSE equals
+    JAX's."""
+    d = dataset["dir"]
+    args = ["run", "--events", str(d / "events.npz"), "--poses", str(d / "traj_gt.txt"),
+            "--map-gx", str(d / "Gx.bin"), "--map-gy", str(d / "Gy.bin"), "--calib",
+            str(d / "calib.yaml"), "--start-time", "0.02", "--stop-time", "0.58",
+            "--c-th", "0.1", "--alpha", "0.5", "--max-num-iter", "6", "--dtype",
+            "float64", "--outlier-dp", "3.0", "--thres-valid-pixel", "3"]
+    res = tcli.main(args + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    tout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jcli.main(args + ["--out", str(tmp_path / "j")])
+    jout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tout["windows"] == jout["windows"] == len(res.window_stats) == 1
+    assert tout["num_knots"] == jout["num_knots"]
+    fr = {k: tmp_path / k / "final_results" for k in "tj"}
+    for name in ("trajectory_refined.txt", "Gx.bin", "Gy.bin", "runtime.json",
+                 "iterations.txt", "checkpoint.npz"):
+        assert (fr["t"] / name).exists(), name
+    assert (tmp_path / "t" / "params.txt").exists()
+    rt_t = json.loads((fr["t"] / "runtime.json").read_text())
+    rt_j = json.loads((fr["j"] / "runtime.json").read_text())
+    assert set(rt_t) == set(rt_j) | {"setup_s"}
+    assert rt_t["lm_mode"] == rt_j["lm_mode"] == ["host"]
+    assert rt_t["num_active_pixels"] == rt_j["num_active_pixels"]
+    assert rt_t["phase_counts"] == rt_j["phase_counts"]
+    assert rt_t["setup_s"] == [0.0]
+
+    rmse = {}
+    for k, cli in (("t", tcli), ("j", jcli)):
+        cli.main(["eval", "--traj", str(fr[k] / "trajectory_refined.txt"), "--gt",
+                  str(d / "traj_gt.txt")])
+        rmse[k] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rmse["t"]["num_poses"] == rmse["j"]["num_poses"]
+    assert rmse["t"]["rotation_rmse_deg"] == pytest.approx(
+        rmse["j"]["rotation_rmse_deg"], rel=REL, abs=REL)
+    assert rmse["t"]["rotation_rmse_deg"] < 2.0
+
+    # no silent CPU path: the default device is the card
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port_pipe(dataset, TC.BAConfig(**ONE), device=None)
+    with pytest.raises(SystemExit):
+        tcli.main(args + ["--device", "gpu"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tcli.main(["suite"])
+
+
+def test_cli_reference_layout_and_clamp(dataset, tmp_path, capsys):
+    """The reference's directory layout resolves the inputs (events from a
+    bag), and a BA interval left at the preset's is clamped to the data,
+    in both CLIs alike."""
+    import shutil
+
+    from emba_tpu_torch import rosbag
+
+    d = dataset["dir"]
+    seq = tmp_path / "datasets" / "ECRot_dataset" / "playroom"
+    seq.mkdir(parents=True)
+    rosbag.write_rosbag(str(seq / "events.bag"), "/dvs/events", *dataset["events"],
+                        width=40, height=40)
+    base = tmp_path / "inputs" / "ECRot_dataset" / "playroom"
+    (base / "traj" / "interpolation").mkdir(parents=True)
+    shutil.copy(d / "traj_gt.txt", base / "traj" / "interpolation" / "cmaxw_traj_interp.txt")
+    maps = base / "map" / "frontend" / "cmaxw_traj_interp" / "bin"
+    maps.mkdir(parents=True)
+    for name in ("Gx.bin", "Gy.bin"):
+        shutil.copy(d / name, maps / name)
+    args = ["run", "--preset", "playroom", "--dataset-root-dir", str(tmp_path / "datasets"),
+            "--input-data-dir", str(tmp_path / "inputs"), "--calib", str(d / "calib.yaml"),
+            "--c-th", "0.1", "--alpha", "0.5", "--max-num-iter", "2", "--dtype", "float64"]
+    res = tcli.main(args + ["--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "clamping stop_time 2.4 -> 0.6" in err
+    jcli.main(args)
+    jout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(res.window_stats) == jout["windows"] == 1
+    assert res.trajectory.num_knots == jout["num_knots"]
+
+
+def _killed_run(make, window, writes):
+    """Run ``make()`` until its ``writes``-th mid-window checkpoint inside
+    ``window``; returns the checkpoint path."""
+    pipe = make()
+    orig = pipe.save_checkpoint
+    calls = []
+
+    class Killed(Exception):
+        pass
+
+    def save_and_die(path, window_idx, lm_state=None):
+        orig(path, window_idx, lm_state=lm_state)
+        if lm_state is not None and window_idx == window:
+            calls.append(path)
+            if len(calls) >= writes:
+                raise Killed
+
+    pipe.save_checkpoint = save_and_die
+    with pytest.raises(Killed):
+        pipe.run()
+    return calls[-1]
+
+
+def test_resume_bitwise_within_port(dataset, tmp_path):
+    """Window-boundary and mid-window checkpoints of a recording run resume
+    to the bits of the uninterrupted run."""
+    cfg = TC.BAConfig(**{**TWO, "max_num_iter": 6}, lm_checkpoint_every=1)
+
+    def make(name):
+        return port_pipe(dataset, cfg, result_dir=str(tmp_path / name), record_data=True)
+
+    full = make("full").run()
+    assert [st.lm_mode for st in full.window_stats] == ["host", "host"]
+
+    part = make("part")
+    part.t_ba_end = 0.3 + 1e-6  # only window 0 fits
+    assert len(part.run().window_stats) == 1
+    boundary = tmp_path / "part" / "final_results" / "checkpoint.npz"
+    z = np.load(boundary)
+    assert int(z["window_idx"]) == 1 and "mid_window" not in z
+
+    mid = _killed_run(lambda: make("killed"), window=1, writes=3)
+    z = np.load(mid)
+    assert bool(z["mid_window"]) and int(z["window_idx"]) == 1 and int(z["lm_it"]) == 3
+
+    for ckpt, skipped in ((boundary, 0), (mid, 3)):
+        res = make(f"resumed{skipped}").run(resume_from=str(ckpt))
+        assert len(res.window_stats) == 1
+        assert (len(res.window_stats[0].iterations)
+                == len(full.window_stats[1].iterations) - skipped)
+        np.testing.assert_array_equal(res.trajectory.knots, full.trajectory.knots)
+        np.testing.assert_array_equal(res.gx, full.gx)
+        np.testing.assert_array_equal(res.gy, full.gy)
+
+
+def test_resume_from_jax_checkpoint(dataset, tmp_path):
+    """A mid-window checkpoint written by the JAX pipeline, resumed by the
+    port, matches JAX's own resumed run."""
+    kw = dict(**{**TWO, "max_num_iter": 6}, lm_checkpoint_every=1)
+    cfg = JC.BAConfig(**kw)
+    ckpt = _killed_run(lambda: jax_pipe(dataset, cfg, result_dir=str(tmp_path / "jk"),
+                                        record_data=True), window=1, writes=2)
+    j = jax_pipe(dataset, cfg, result_dir=str(tmp_path / "jr"),
+                 record_data=True).run(resume_from=ckpt)
+    t = port_pipe(dataset, TC.BAConfig(**kw), result_dir=str(tmp_path / "tr"),
+                  record_data=True).run(resume_from=ckpt)
+    assert_runs_match(t, j)
+    assert len(t.window_stats[0].iterations) == len(j.window_stats[0].iterations) >= 1
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("compact_cap", 4096, "item 10"),
+    ("light_trial", True, "item 10"),
+    ("stream_chunk", 1 << 20, "item 11"),
+    ("stream_light", True, "item 11"),
+    ("super_res_height", 128, "item 11"),
+    ("coarse_to_fine", True, "item 13"),
+    ("multi_start", True, "item 13"),
+    ("num_devices", 2, "item 14"),
+])
+def test_unported_options_raise(dataset, option, value, item):
+    cfg = TC.BAConfig(**ONE)
+    setattr(cfg, option, value)
+    with pytest.raises(NotImplementedError, match=item):
+        port_pipe(dataset, cfg).run()
+
+
+def test_auto_compaction_and_auto_stream_raise(dataset):
+    """Where the reference would turn on compaction by itself (a 2048x1024
+    panorama) or streaming (a window above the classic cap), the port
+    raises; its decision equals the reference's at the same inputs."""
+    z = np.zeros((1024, 2048))
+    gx, gy = dataset["maps"]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TP.EmbaPipeline(TC.BAConfig(**ONE), load_camera_yaml(
+            str(dataset["dir"] / "calib.yaml")), dataset["events"], *dataset["poses"],
+            init_gx=z, init_gy=z, device="cpu").run()
+    assert TP.auto_compact_cap(2048 * 1024, 10_000, 3) == JP.auto_compact_cap(
+        2048 * 1024, 10_000, 3) == 4096
+    assert TP.auto_compact_cap(1024 * 512, 2_000_000, 3) is None
+
+    cfg_t, cfg_j = TC.BAConfig(), JC.BAConfig()
+    t = np.concatenate([np.linspace(0.0, 0.5, 100, endpoint=False),
+                        np.linspace(0.5, 1.0, 900)])
+    mcfg = TC.BAConfig(pano_width=128, pano_height=64).model_config()
+    jm = JC.BAConfig(pano_width=128, pano_height=64, use_pallas=False).model_config()
+    for beg, end, cap in ((0.0, 1.0, 700), (0.0, 1.0, 500), (0.0, 0.1, 900),
+                          (0.0, 0.1, 2000)):
+        args = (t, beg, end, 0.8, 0.5, 1)
+        streams = JP.plan_model_config(jm, cfg_j, *args, classic_cap_small=cap,
+                                       classic_cap_large=cap)[0].stream_chunk
+        if streams is None:
+            assert TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
+                                        classic_cap_large=cap) is mcfg
+        else:
+            with pytest.raises(NotImplementedError, match="item 11"):
+                TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
+                                     classic_cap_large=cap)
+    assert TP.CLASSIC_CAP_LARGE_ROWS <= TP.CLASSIC_CAP_SMALL_ROWS
+
+
+def test_fused_event_cap_fallback(dataset, tmp_path):
+    """A window above fused_event_cap runs the host loop and records it
+    (runtime.json lm_mode), as in the reference; the result is the host
+    loop's."""
+    kw = dict(start_time=0.02, stop_time=0.4, c_th=0.1, alpha=0.5, max_num_iter=3,
+              dt_knots=0.05, dtype="float64")
+    res = port_pipe(dataset, TC.BAConfig(**kw, fused_lm=True, fused_event_cap=100),
+                    result_dir=str(tmp_path / "cap"), record_data=True).run()
+    assert res.window_stats[0].lm_mode == "host(fused-cap-fallback)"
+    rt = json.loads((tmp_path / "cap" / "final_results" / "runtime.json").read_text())
+    assert rt["lm_mode"] == ["host(fused-cap-fallback)"]
+    assert rt["phases_s"]["form"] > 0
+    host = port_pipe(dataset, TC.BAConfig(**kw, fused_lm=False)).run()
+    np.testing.assert_array_equal(res.trajectory.knots, host.trajectory.knots)
+    big = port_pipe(dataset, TC.BAConfig(**kw, fused_lm=True, fused_event_cap=10**9)).run()
+    assert big.window_stats[0].lm_mode == "fused"
+
+
+def test_nan_debug_names_the_window(dataset):
+    """--debug-nans: a non-finite map after a window raises
+    FloatingPointError naming the window; off, the run completes."""
+    gx, gy = dataset["maps"]
+    bad = gx.copy()
+    bad[10:13, 20:23] = np.nan  # survives the 3x3 median blur
+    cfg = TC.BAConfig(**{**ONE, "max_num_iter": 1})
+    from emba_tpu_torch.obs import nan_debug
+
+    def make():
+        return TP.EmbaPipeline(cfg, load_camera_yaml(str(dataset["dir"] / "calib.yaml")),
+                               dataset["events"], *dataset["poses"], init_gx=bad,
+                               init_gy=gy.copy(), device="cpu")
+
+    with nan_debug(True), pytest.raises(FloatingPointError, match="window 0"):
+        make().run()
+    assert len(make().run().window_stats) == 1
+
+
+def test_record_maps_and_median_blur(dataset, tmp_path):
+    """--record-maps fills the per-iteration evolution folders and the
+    per-window map set; the median blur and the subsample equal the
+    reference's."""
+    cfg = TC.BAConfig(**{**ONE, "max_num_iter": 2})
+    res = port_pipe(dataset, cfg, result_dir=str(tmp_path / "evo"), record_data=True,
+                    record_maps=True).run()
+    n_iter = len(res.window_stats[0].iterations)
+    for d in ("Gx_evo", "Gy_evo", "G_hsv_evo", "map_poisson_evo"):
+        assert len(os.listdir(tmp_path / "evo" / d)) >= n_iter, d
+    assert len(os.listdir(tmp_path / "evo" / "map_opt")) == 4
+    img = np.random.default_rng(3).normal(size=(9, 14))
+    np.testing.assert_array_equal(TP.median_blur_3x3(img), JP.median_blur_3x3(img))
+    ev = dataset["events"]
+    for a, b in zip(TP.systematic_subsample(*ev, 8), JP.systematic_subsample(*ev, 8)):
+        np.testing.assert_array_equal(a, b)
