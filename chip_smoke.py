@@ -54,7 +54,32 @@ Phases, each reporting on its own lines:
     reconstruction of the refined maps on the card against the port's f64
     CPU result. Every run's A12 launches must equal its forming passes; the
     fused run prints its peak device bytes per event, from which
-    ``pipeline.CLASSIC_CAP_SMALL_ROWS`` is set.
+    ``pipeline.CLASSIC_CAP_SMALL_ROWS`` is set;
+12. the accuracy path and 4K panoramas, each path with the A12 launches
+    counted from 0 and gated against its forming passes: (a) ``cli run
+    --multi-start`` (fused) on phase 11's scene, each variant's data cost
+    and iterations printed, the selected one the lowest, ``eval`` RMSE under
+    half the initial; (b) ``eval_suite.run_sequence`` with multi-start on
+    ``ecrot_street_like`` at the suite's settings, its row beside the
+    TPU's, the RMSE falling; in (a) and (b) the A12 kernel is held against
+    its plain version (exact) on the first forming pass of a coarse stage
+    (a 512x256 panorama) and of a ``sample_mode="mid"`` variant; (c) ``bench.py``'s problem at a 4096x2048
+    panorama, its first 2M and 4M events compacted to the automatic caps
+    2^20 and 2^21: the compacted forming pass through the kernel against
+    the plain version (every NormalEq field, dropped = 0 in both), the A12
+    kernel's occupancy, times and bound at the compacted R_pad, the window
+    fused and through the host loop (same steps, final costs within 1e-5,
+    the cost falls), peak bytes per event, and the classic-window cap
+    above 2^20 rows (``pipeline.CLASSIC_CAP_LARGE_ROWS``) from the 4M
+    window; (d) the 1024x512 bench window at a cap of 2^18 (the
+    uncompacted host loop's steps; in f32 the final cost within 1e-4, and
+    the same pair with the plain forming pass printed beside it, its steps
+    the same and each within 1e-4 of the kernel's run at its row space;
+    within 1e-8 in f64 with the plain forming pass) and at an
+    undersized cap of 32,768 (kernel and plain version agree, with equal
+    ``dropped``); (e) light-trial LM on that window, fused and host,
+    against the classic runs (same steps, final cost within 1e-5), its loop
+    seconds beside theirs.
 
 Each kernel line gives its time beside its bound, the least time the card
 could take (``a12_bound``: bytes at 3.35 TB/s or f32 operations at 67
@@ -74,6 +99,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -511,7 +537,7 @@ def phase_main(device):
                 host=(knots, Gx, Gy, st))
 
 
-def phase_window_kernel(ctx, name="real window", graphed=True):
+def phase_window_kernel(ctx, name="real window", graphed=True, exact=True):
     """The A12 kernel on a window's own linearization at its start state
     (the first forming pass's inputs; ``ctx`` holds ``dev``, ``cfg`` and
     ``start``), against its plain version, and the window's occupancy: rows
@@ -534,7 +560,7 @@ def phase_window_kernel(ctx, name="real window", graphed=True):
           f"{knots * knots}; i_c - i_p in [{int(back.min())}, {int(back.max())}]",
           flush=True)
     return check_kernel_case(f"{name} N={n} K={knots} order={order}", args,
-                             r_pad, knots, order, exact=True, graphed=graphed)
+                             r_pad, knots, order, exact=exact, graphed=graphed)
 
 
 def _reset_peak_memory():
@@ -715,21 +741,25 @@ def _cli_run(name, argv):
 @contextlib.contextmanager
 def _window_inputs(keep):
     """Within the scope, the pipeline's window solve records the inputs of
-    the windows whose ids are in ``keep``: {win_id: {"dev", "cfg", "state"}},
-    the device window as uploaded, the model configuration and the
-    arguments from which the solve converts its start state (host arrays,
-    so that the run's device memory stays as it was)."""
+    every solve of the windows whose ids are in ``keep``, in call order (a
+    coarse stage and each multi-start variant is a solve of its own):
+    {win_id: [{"dev", "cfg", "state"}, ...]}, the device window as
+    uploaded, the model configuration and the arguments from which the
+    solve converts its start state (its maps, the pipeline's or a coarse
+    stage's, as host arrays, so that the run's device memory stays as it
+    was)."""
     from emba_tpu_torch import pipeline
 
     got = {}
     solve = pipeline.EmbaPipeline._solve
 
-    def recording(self, win_id, num_events, seg_knots, dev, mcfg, *rest):
+    def recording(self, win_id, num_events, seg_knots, dev, mcfg, *rest, **kw):
         if win_id in keep:
-            got[win_id] = dict(dev=dev, cfg=mcfg, state=(
-                np.array(seg_knots), self.gx.copy(), self.gy.copy(), self.dtype,
-                self.device))
-        return solve(self, win_id, num_events, seg_knots, dev, mcfg, *rest)
+            gx, gy = kw.get("maps") or (self.gx, self.gy)
+            got.setdefault(win_id, []).append(dict(dev=dev, cfg=mcfg, state=(
+                np.array(seg_knots), np.array(gx), np.array(gy), self.dtype,
+                self.device)))
+        return solve(self, win_id, num_events, seg_knots, dev, mcfg, *rest, **kw)
 
     pipeline.EmbaPipeline._solve = recording
     try:
@@ -738,33 +768,43 @@ def _window_inputs(keep):
         pipeline.EmbaPipeline._solve = solve
 
 
-def _pipeline_window_kernel(name, windows):
-    """The A12 kernel on the first forming pass of a pipeline window (the
-    only window recorded in ``windows``), exact, against its plain version;
-    the recorded inputs are freed after. Returns the case's numbers."""
+def _pipeline_window_kernel(name, solve):
+    """The A12 kernel on the first forming pass of a pipeline window's
+    solve (one entry that :func:`_window_inputs` recorded), exact, against
+    its plain version. Returns the case's numbers."""
     import torch
 
     from emba_tpu_torch import convert
 
-    (ctx,) = windows.values()
-    windows.clear()
-    ctx["start"] = convert.state_from_numpy(*ctx.pop("state"))
+    ctx = dict(solve, start=convert.state_from_numpy(*solve["state"]))
     case = phase_window_kernel(ctx, name=name, graphed=False)
     del ctx
     torch.cuda.empty_cache()
     return case
 
 
+def _coarse_and_mid(solves):
+    """Of a multi-start window's recorded solves (in the order of
+    pipeline.MULTI_START), the first coarse stage (a half-resolution
+    panorama) and the first ``sample_mode="mid"`` solve at full
+    resolution."""
+    full = max(c["cfg"].pano_height for c in solves)
+    coarse = [c for c in solves if c["cfg"].pano_height < full]
+    mid = [c for c in solves if c["cfg"].pano_height == full and c["cfg"].sample_mode == "mid"]
+    _require(coarse and mid, "multi-start: no coarse stage or no mid variant was solved")
+    return coarse[0], mid[0]
+
+
 def _accepts(stats):
     return "".join("A" if r["cost_new"] < r["cost_min"] else "r" for r in stats.iterations)
 
 
-def phase_pipeline(device):
-    """The port's CLI on the suite row (see the module docstring, phase 11).
-    Returns ({run: A12 launches}, the largest absolute error of the A12
-    kernel against its plain version on the recorded windows)."""
-    import tempfile
-
+def phase_pipeline(device, d):
+    """The port's CLI on the suite row (see the module docstring, phase 11),
+    its scene files written into ``d``. Returns ({run: A12 launches}, the
+    largest absolute error of the A12 kernel against its plain version on
+    the recorded windows, the scene's {file: path}, run 3's initial and
+    refined RMSE)."""
     import torch
 
     from emba_tpu_torch import cli, recon, spline
@@ -773,94 +813,545 @@ def phase_pipeline(device):
     from emba_tpu_torch.probes.suite_run import (CAP_MEMORY_SHARE, CARD_BYTES, cap_from,
                                                  suite_argv, write_suite_scene)
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        n_scene, n_kept, p = write_suite_scene(d)
-        print(f"pipeline: suite row ecrot_bicycle_like, {n_scene} events rendered, "
-              f"{n_kept} kept; scene files in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        argv = suite_argv(p)
+    t0 = time.perf_counter()
+    n_scene, n_kept, p = write_suite_scene(d)
+    print(f"pipeline: suite row ecrot_bicycle_like, {n_scene} events rendered, "
+          f"{n_kept} kept; scene files in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    argv = suite_argv(p)
 
-        with _window_inputs({0}) as windows:
-            fused, s1 = _cli_run("run 1 (fused, whole span)", argv)
-        st1 = fused.window_stats[0]
-        cases = [_pipeline_window_kernel("pipeline run 1 window 0", windows)]
-        _require(s1["windows"] == 1 and st1.lm_mode == "fused",
-                 f"run 1: {s1['windows']} windows, lm_mode {st1.lm_mode}")
-        _require(st1.setup_s > 0, "run 1: the window did not capture its graphs")
+    with _window_inputs({0}) as windows:
+        fused, s1 = _cli_run("run 1 (fused, whole span)", argv)
+    st1 = fused.window_stats[0]
+    cases = [_pipeline_window_kernel("pipeline run 1 window 0", windows.pop(0)[0])]
+    _require(s1["windows"] == 1 and st1.lm_mode == "fused",
+             f"run 1: {s1['windows']} windows, lm_mode {st1.lm_mode}")
+    _require(st1.setup_s > 0, "run 1: the window did not capture its graphs")
 
-        out = os.path.join(d, "rec")
-        host, s2 = _cli_run("run 2 (recording, host loop)", argv + ["--out", out])
-        st2 = host.window_stats[0]
-        with open(os.path.join(out, "final_results", "runtime.json")) as f:
-            rt = json.load(f)
-        dk = float(np.max(np.abs(host.trajectory.knots - fused.trajectory.knots))
-                   / np.max(np.abs(fused.trajectory.knots)))
-        print(f"pipeline run 2 vs run 1: iterations {len(st2.iterations)} vs "
-              f"{len(st1.iterations)}; accepts {_accepts(st2)} vs {_accepts(st1)}; "
-              f"knots rel {dk:.3e}; runtime.json lm_mode {rt['lm_mode']}, total_s "
-              f"{rt['total_s']:.4f}, phases_s {json.dumps(rt['phases_s'])}, "
-              f"phase_counts {json.dumps(rt['phase_counts'])}, window_prep_s "
-              f"{rt['window_prep_s']}", flush=True)
-        _require(rt["lm_mode"] == ["host"], f"run 2: runtime.json lm_mode {rt['lm_mode']}")
-        _require(len(st2.iterations) == len(st1.iterations),
-                 "run 2: iteration count differs from run 1")
-        _require(_accepts(st2) == _accepts(st1), "run 2: accept sequence differs from run 1")
-        _require(dk <= PIPELINE_KNOTS_REL_TOL,
-                 f"run 2: knots rel {dk:.3e} > {PIPELINE_KNOTS_REL_TOL:.0e}")
-        per_ev = max(s1["bytes_per_event_reserved"], s2["bytes_per_event_reserved"])
-        print(f"pipeline runs 1-2: classic-window cap estimate from these runs "
-              f"{cap_from(per_ev)} events ({CAP_MEMORY_SHARE} x {CARD_BYTES:.0f} bytes / "
-              f"{per_ev:.1f} bytes an event reserved, the larger of the fused and the "
-              "recording run; it counts the map-sized buffers per event, so it errs "
-              "low: probes/suite_run.py measures a window near the cap; the device "
-              f"reports {torch.cuda.get_device_properties(0).total_memory} bytes); "
-              f"pipeline.CLASSIC_CAP_SMALL_ROWS {CLASSIC_CAP_SMALL_ROWS}", flush=True)
+    out = os.path.join(d, "rec")
+    host, s2 = _cli_run("run 2 (recording, host loop)", argv + ["--out", out])
+    st2 = host.window_stats[0]
+    with open(os.path.join(out, "final_results", "runtime.json")) as f:
+        rt = json.load(f)
+    dk = float(np.max(np.abs(host.trajectory.knots - fused.trajectory.knots))
+               / np.max(np.abs(fused.trajectory.knots)))
+    print(f"pipeline run 2 vs run 1: iterations {len(st2.iterations)} vs "
+          f"{len(st1.iterations)}; accepts {_accepts(st2)} vs {_accepts(st1)}; "
+          f"knots rel {dk:.3e}; runtime.json lm_mode {rt['lm_mode']}, total_s "
+          f"{rt['total_s']:.4f}, phases_s {json.dumps(rt['phases_s'])}, "
+          f"phase_counts {json.dumps(rt['phase_counts'])}, window_prep_s "
+          f"{rt['window_prep_s']}", flush=True)
+    _require(rt["lm_mode"] == ["host"], f"run 2: runtime.json lm_mode {rt['lm_mode']}")
+    _require(len(st2.iterations) == len(st1.iterations),
+             "run 2: iteration count differs from run 1")
+    _require(_accepts(st2) == _accepts(st1), "run 2: accept sequence differs from run 1")
+    _require(dk <= PIPELINE_KNOTS_REL_TOL,
+             f"run 2: knots rel {dk:.3e} > {PIPELINE_KNOTS_REL_TOL:.0e}")
+    per_ev = max(s1["bytes_per_event_reserved"], s2["bytes_per_event_reserved"])
+    print(f"pipeline runs 1-2: classic-window cap estimate from these runs "
+          f"{cap_from(per_ev)} events ({CAP_MEMORY_SHARE} x {CARD_BYTES:.0f} bytes / "
+          f"{per_ev:.1f} bytes an event reserved, the larger of the fused and the "
+          "recording run; it counts the map-sized buffers per event, so it errs "
+          "low: probes/suite_run.py measures a window near the cap; the device "
+          f"reports {torch.cuda.get_device_properties(0).total_memory} bytes); "
+          f"pipeline.CLASSIC_CAP_SMALL_ROWS {CLASSIC_CAP_SMALL_ROWS}", flush=True)
 
-        # run 3: eval of run 1's refined trajectory, and of the start the
-        # pipeline fits to the front-end poses at the same knot times
-        times, rots = eio.load_tum_trajectory(p["frontend.txt"])
-        m = (times > 0.1) & (times < 4.7)
-        start = spline.Trajectory.from_poses(times[m], rots[m], 0.1, 4.7, 0.05)
-        rmse = {}
-        for name, traj in (("initial", start), ("refined", fused.trajectory)):
-            path = os.path.join(d, f"{name}.txt")
-            traj.write_tum(path)
-            rmse[name] = cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])
-        r0, r1 = (rmse[k]["rotation_rmse_deg"] for k in ("initial", "refined"))
-        cost0, cost1 = st1.iterations[0]["cost_min"], min(
-            [r["cost_min"] for r in st1.iterations] + [r["cost_new"]
-                                                       for r in st1.iterations])
-        print(f"pipeline run 3 (eval): rotation RMSE {r0:.4f} -> {r1:.4f} deg over "
-              f"{rmse['refined']['num_poses']} knots; cost {cost0:.6g} -> {cost1:.6g}; "
-              "the suite's row (reference formulation, emba_tpu on the same scene "
-              "and 4M-event cut): 1.89 -> 0.26 deg", flush=True)
-        _require(np.isfinite([r0, r1]).all() and r1 < 0.5 * r0,
-                 f"run 3: refined RMSE {r1:.4f} not under half the initial {r0:.4f}")
+    # run 3: eval of run 1's refined trajectory, and of the start the
+    # pipeline fits to the front-end poses at the same knot times
+    times, rots = eio.load_tum_trajectory(p["frontend.txt"])
+    m = (times > 0.1) & (times < 4.7)
+    start = spline.Trajectory.from_poses(times[m], rots[m], 0.1, 4.7, 0.05)
+    rmse = {}
+    for name, traj in (("initial", start), ("refined", fused.trajectory)):
+        path = os.path.join(d, f"{name}.txt")
+        traj.write_tum(path)
+        rmse[name] = cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])
+    r0, r1 = (rmse[k]["rotation_rmse_deg"] for k in ("initial", "refined"))
+    cost0, cost1 = st1.iterations[0]["cost_min"], min(
+        [r["cost_min"] for r in st1.iterations] + [r["cost_new"]
+                                                   for r in st1.iterations])
+    print(f"pipeline run 3 (eval): rotation RMSE {r0:.4f} -> {r1:.4f} deg over "
+          f"{rmse['refined']['num_poses']} knots; cost {cost0:.6g} -> {cost1:.6g}; "
+          "the suite's row (reference formulation, emba_tpu on the same scene "
+          "and 4M-event cut): 1.89 -> 0.26 deg", flush=True)
+    _require(np.isfinite([r0, r1]).all() and r1 < 0.5 * r0,
+             f"run 3: refined RMSE {r1:.4f} not under half the initial {r0:.4f}")
 
-        with _window_inputs({2}) as windows:
-            slide, s4 = _cli_run("run 4 (sliding windows 2.0 s, stride 1.0 s, fused)",
-                                 argv + ["--time-window-size", "2.0",
-                                         "--sliding-window-stride", "1.0"])
-        cases.append(_pipeline_window_kernel("pipeline run 4 window 2", windows))
-        _require(s4["windows"] == 3, f"run 4: {s4['windows']} windows, expected 3")
-        _require(all(m == "fused" for m in s4["lm_mode"]), f"run 4: {s4['lm_mode']}")
-        _require(all(s > 0 for s in s4["setup_s"]),
-                 f"run 4: a window did not capture its own graphs {s4['setup_s']}")
+    with _window_inputs({2}) as windows:
+        slide, s4 = _cli_run("run 4 (sliding windows 2.0 s, stride 1.0 s, fused)",
+                             argv + ["--time-window-size", "2.0",
+                                     "--sliding-window-stride", "1.0"])
+    cases.append(_pipeline_window_kernel("pipeline run 4 window 2", windows.pop(2)[0]))
+    _require(s4["windows"] == 3, f"run 4: {s4['windows']} windows, expected 3")
+    _require(all(m == "fused" for m in s4["lm_mode"]), f"run 4: {s4['lm_mode']}")
+    _require(all(s > 0 for s in s4["setup_s"]),
+             f"run 4: a window did not capture its own graphs {s4['setup_s']}")
 
-        gx, gy = (torch.as_tensor(a) for a in (fused.gx, fused.gy))
-        want = recon.reconstruct_from_gradient(gx, gy)
-        got = recon.reconstruct_from_gradient(gx.to(device, torch.float32),
-                                              gy.to(device, torch.float32))
-        torch.cuda.synchronize()
-        rel = float((got.double().cpu() - want).abs().max() / want.abs().max())
-        print(f"pipeline run 5 (recon): {tuple(got.shape)} f32 on the card vs f64 on the "
-              f"CPU, rel {rel:.3e} (tolerance {RECON_REL_TOL:.0e})", flush=True)
-        _require(torch.isfinite(got).all().item() and rel <= RECON_REL_TOL,
-                 f"run 5: recon rel {rel:.3e} > {RECON_REL_TOL:.0e}")
+    gx, gy = (torch.as_tensor(a) for a in (fused.gx, fused.gy))
+    want = recon.reconstruct_from_gradient(gx, gy)
+    got = recon.reconstruct_from_gradient(gx.to(device, torch.float32),
+                                          gy.to(device, torch.float32))
+    torch.cuda.synchronize()
+    rel = float((got.double().cpu() - want).abs().max() / want.abs().max())
+    print(f"pipeline run 5 (recon): {tuple(got.shape)} f32 on the card vs f64 on the "
+          f"CPU, rel {rel:.3e} (tolerance {RECON_REL_TOL:.0e})", flush=True)
+    _require(torch.isfinite(got).all().item() and rel <= RECON_REL_TOL,
+             f"run 5: recon rel {rel:.3e} > {RECON_REL_TOL:.0e}")
     launches = {"run1": s1["a12_launches"], "run2": s2["a12_launches"],
                 "run4": s4["a12_launches"]}
-    return launches, max(c[0] for c in cases)
+    return launches, max(c[0] for c in cases), p, (r0, r1)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the accuracy path and 4K panoramas.
+# ---------------------------------------------------------------------------
+
+# 12c: the 4096x2048 bench windows and their compaction caps
+# (pipeline.auto_compact_cap(8_388_608, n, 3)).
+PANO_4K_HEIGHT = 2048
+WINDOWS_4K = (2_000_000, 4_000_000)
+# 12d: caps of the 1024x512 bench window: above its ~41.6k active rows, and
+# under them (the CPU tests hold caps that are not a multiple of 512)
+CAP_ABOVE, CAP_UNDER = 1 << 18, 32_768
+# 12d, f32 windows that sum in other orders: compacted against
+# uncompacted (the Schur GEMMs run over 2^18 or 2^19 rows), the kernel
+# against the plain forming pass. On an NVIDIA H100 80GB HBM3, 700 W, the
+# final cost after 9 steps moved 2.53e-5 between the kernel's two row
+# spaces, 5.73e-5 between the plain version's, and 3.96e-5 and 4.30e-5
+# between kernel and plain at one row space: f32 rounding, which the LM
+# steps carry into the cost, whatever sums. In f64 (the plain forming
+# pass) that rounding is 2^29 times smaller; 1e-8 is the f64 window
+# tolerance of the CPU parity tests.
+COMPACT_F32_REL_TOL = 1e-4
+COMPACT_F64_REL_TOL = 1e-8
+# 12b: ecrot_street_like through eval_suite, as scripts/r5_suite.py ran it
+SUITE_ROW_KW = dict(pano_height=512, sensor=240, sensor_h=180, c_th=0.2,
+                    perturb=0.005, num_steps=1500, max_iter=50)
+# that row's multi-start result on the TPU (docs/suite_table_ecrot_r5.md)
+SUITE_ROW_TPU = "1.54 -> 0.27 deg, selected curr+c2f"
+
+
+@contextlib.contextmanager
+def _plain_forming():
+    """Within the scope, the forming pass runs the A12 kernel's plain
+    version on the same device tensors (no launch is counted)."""
+    from emba_tpu_torch.kernels import a12_accum
+
+    kernel = a12_accum.a12_accumulate
+    a12_accum.a12_accumulate = a12_accum.a12_accumulate_plain
+    try:
+        yield
+    finally:
+        a12_accum.a12_accumulate = kernel
+
+
+def check_forming(name, ctx):
+    """``model.form_normal_eq`` at a window's start state through the A12
+    kernel and through its plain version on the same linearization: every
+    NormalEq field within KERNEL_REL_TOL of the plain one, the row space,
+    the active count and ``dropped`` equal. Returns (max abs err, dropped,
+    active count, R_pad)."""
+    import torch
+
+    from emba_tpu_torch import model as M
+
+    knots, Gx, Gy = ctx["start"]
+    cfg = ctx["cfg"]
+    lin = M.linearize(knots, Gx, Gy, ctx["dev"], cfg)
+    got = M.form_normal_eq(lin, Gx, Gy, cfg, knots.shape[0])
+    with _plain_forming():
+        want = M.form_normal_eq(lin, Gx, Gy, cfg, knots.shape[0])
+    torch.cuda.synchronize()
+    del lin
+    max_abs, parts = 0.0, []
+    for f in ("A11", "b1", "a22_xx", "a22_xy", "a22_yy", "b2_x", "b2_y", "A12"):
+        g, w = getattr(got, f), getattr(want, f)
+        _require(torch.isfinite(g).all().item(), f"{name}: {f} not finite")
+        rel = _rel(g, w)
+        _require(rel <= KERNEL_REL_TOL, f"{name}: {f} rel err {rel:.3e} > {KERNEL_REL_TOL:.0e}")
+        max_abs = max(max_abs, float(torch.max(torch.abs(g - w))))
+        parts.append(f"{f} {rel:.2e}")
+    for f in ("active", "pix2row", "active_pix"):
+        _require(torch.equal(getattr(got, f), getattr(want, f)), f"{name}: {f} differs")
+    dropped = (int(got.dropped), int(want.dropped))
+    active = (int(got.active_count), int(want.active_count))
+    r_pad = got.A12.shape[0]
+    print(f"{name}: form_normal_eq through the kernel vs the plain version: rel "
+          + ", ".join(parts) + f"; R_pad {r_pad}; active pixels {active[0]} "
+          f"(plain {active[1]}); dropped {dropped[0]} (plain {dropped[1]})", flush=True)
+    _require(dropped[0] == dropped[1] and active[0] == active[1],
+             f"{name}: dropped or active counts differ {dropped} {active}")
+    return max_abs, dropped[0], active[0], r_pad
+
+
+def _peak_bytes():
+    """Free the graph and allocator caches and reset the peaks; returns a
+    function giving (peak allocated, peak reserved) bytes since."""
+    import torch
+
+    from emba_tpu_torch import solver
+
+    solver._GRAPHED.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return lambda: (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+
+
+def _final_cost(st):
+    """The lowest cost a host loop's records reach."""
+    return min([r["cost_min"] for r in st.iterations] + [r["cost_new"] for r in st.iterations])
+
+
+def _loops_agree(name, fused_out, loop, launches_fused, host, launches_host):
+    """Gates of a window run fused and through the host loop: the same
+    iterations and accepts, final costs within FUSED_COST_REL_TOL, the cost
+    falls, no NaN, no measurement dropped, A12 launches = forming passes.
+    Returns the fused final cost."""
+    from emba_tpu_torch import lm
+
+    k, gx, gy, cost, it, conv, trace = fused_out
+    _finite(name, (k, gx, gy))
+    recs = lm.trace_records(trace.cpu().double().numpy(), int(it))
+    k_h, gx_h, gy_h, st = host
+    _finite(f"{name} host", (k_h, gx_h, gy_h))
+    host_cost = _final_cost(st)
+    rel = abs(float(cost) - host_cost) / abs(host_cost)
+    acc_f = "".join("A" if r["accepted"] else "r" for r in recs)
+    acc_h = _accepts(st)
+    cost0 = st.iterations[0]["cost_min"]
+    dropped = [r["dropped"] for r in recs] + st.dropped_meas_per_form
+    print(f"{name}: fused {int(it)} iterations {acc_f}, host {len(st.iterations)} "
+          f"{acc_h}; cost {cost0:.6g} -> fused {float(cost):.6g}, host {host_cost:.6g} "
+          f"(rel {rel:.2e}); A12 launches fused {launches_fused} = {loop.form_passes} "
+          f"forming passes, host {launches_host} = {st.count_form}; dropped "
+          f"{max(dropped)}", flush=True)
+    _require(int(it) == len(st.iterations) and acc_f == acc_h,
+             f"{name}: the fused and the host loop took other steps")
+    _require(rel <= FUSED_COST_REL_TOL, f"{name}: final cost rel {rel:.2e}")
+    _require(float(cost) < cost0, f"{name}: the cost did not fall")
+    _require(max(dropped) == 0, f"{name}: measurements dropped past the cap")
+    _require(launches_fused == loop.form_passes and launches_host == st.count_form,
+             f"{name}: A12 launches != forming passes")
+    return float(cost)
+
+
+def _fused_and_host(name, ctx, iters=MAIN_ITERS):
+    """A window run fused (from an empty graph cache) and then through the
+    host loop, each with the A12 launches counted from 0 and the device's
+    peaks reset; gated by :func:`_loops_agree`. Returns {"fused", "host"}:
+    each (loop seconds, set-up seconds, peak allocated, peak reserved,
+    A12 launches)."""
+    import torch
+
+    from emba_tpu_torch import kernels, lm, solver
+
+    out = {}
+    peaks = _peak_bytes()
+    kernels.reset_launch_counts()
+    loop = lm.LoopStats()
+    fused = solver.solve_window_fused(
+        *ctx["start"], ctx["dev"], ctx["cfg"], 1.0, 0.0, fix_first=True,
+        max_num_iter=iters, return_trace=True, stats=loop)
+    torch.cuda.synchronize()
+    launches_f = kernels.launch_counts()["a12_accum"]
+    out["fused"] = (loop.loop_s, loop.setup_s, *peaks(), launches_f)
+    peaks = _peak_bytes()
+    kernels.reset_launch_counts()
+    host = solver.solve_window(*ctx["start"], ctx["dev"], ctx["cfg"],
+                               solver.LMConfig(max_num_iter=iters, tol_fun=0.0),
+                               fix_first=True)
+    torch.cuda.synchronize()
+    launches_h = kernels.launch_counts()["a12_accum"]
+    out["host"] = (host[3].time_total_s, 0.0, *peaks(), launches_h)
+    _loops_agree(name, fused, loop, launches_f, host, launches_h)
+    del fused, host
+    solver._GRAPHED.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multi_start(p, rmse_run3):
+    """12a: ``cli run --multi-start`` (fused) on phase 11's suite row; the
+    A12 kernel held against its plain version on the first forming pass of
+    a coarse stage and of a ``mid`` variant. Returns (A12 launches, the
+    kernel's largest absolute error)."""
+    from emba_tpu_torch import cli
+    from emba_tpu_torch.probes.suite_run import suite_argv
+
+    with _window_inputs({0}) as windows:
+        res, s = _cli_run("12a (multi-start, fused, whole span)",
+                          suite_argv(p) + ["--multi-start"])
+    solves = windows.pop(0)
+    coarse, mid = _coarse_and_mid(solves)
+    del solves
+    err = max(_pipeline_window_kernel("12a coarse stage", coarse)[0],
+              _pipeline_window_kernel("12a mid variant", mid)[0])
+    del coarse, mid
+    st = res.window_stats[0]
+    sel = st.lm_mode.split("+multistart:")[-1]
+    costs = {v["variant"]: v["data_cost"] for v in st.variants}
+    for v in st.variants:
+        print(f"12a variant {v['variant']}: data cost {v['data_cost']:.6g}, "
+              f"{v['iterations']} iterations (+{v['coarse_iterations']} coarse), "
+              f"solve {v['time_total_s']:.4f} s of which set-up {v['setup_s']:.4f} s",
+              flush=True)
+    path = os.path.join(os.path.dirname(p["events.npz"]), "multistart.txt")
+    res.trajectory.write_tum(path)
+    r = cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])["rotation_rmse_deg"]
+    r0, r1 = rmse_run3
+    setup, total = sum(s["setup_s"]), sum(s["window_s"])
+    print(f"12a: selected {sel} ({st.lm_mode}); set-up {setup:.4f} s, loop "
+          f"{total - setup:.4f} s over {st.count_objective} objectives and "
+          f"{st.count_form} forming passes of the four variants; CLI call "
+          f"{s['wall_s']:.4f} s; rotation RMSE {r0:.4f} -> {r:.4f} deg (phase 11 run 1, "
+          f"one variant: {r1:.4f})", flush=True)
+    _require(len(costs) == 4 and sel in costs, f"12a: variants {list(costs)}, {sel}")
+    _require(costs[sel] == min(costs.values()),
+             f"12a: the selected {sel} has not the lowest data cost {costs}")
+    _require(np.isfinite(r) and r < 0.5 * r0,
+             f"12a: refined RMSE {r:.4f} not under half the initial {r0:.4f}")
+    return s["a12_launches"], err
+
+
+@contextlib.contextmanager
+def _suite_solves():
+    """Within the scope, every ``solver.solve_window`` call (each solve of
+    an eval_suite row) records {"dev", "cfg", "start", "stats"}: its device
+    window, model configuration, a copy of its start state and its
+    LMStats, in call order."""
+    from emba_tpu_torch import solver
+
+    got = []
+    solve = solver.solve_window
+
+    def recording(knots, gx, gy, dev, cfg, *rest, **kw):
+        start = tuple(t.clone() for t in (knots, gx, gy))
+        out = solve(knots, gx, gy, dev, cfg, *rest, **kw)
+        got.append(dict(dev=dev, cfg=cfg, start=start, stats=out[3]))
+        return out
+
+    solver.solve_window = recording
+    try:
+        yield got
+    finally:
+        solver.solve_window = solve
+
+
+def phase_suite_row():
+    """12b: eval_suite.run_sequence, multi-start, on ecrot_street_like; its
+    A12 launches against the forming passes of all its solves, and the
+    kernel against its plain version on the first forming pass of a coarse
+    stage and of a ``mid`` variant. Returns (A12 launches, the kernel's
+    largest absolute error)."""
+    import torch
+
+    from emba_tpu_torch import eval_suite, kernels
+
+    name = "ecrot_street_like"
+    kernels.reset_launch_counts()
+    with _suite_solves() as solves:
+        row = eval_suite.run_sequence(name, *eval_suite.ECROT_LIKE[name], **SUITE_ROW_KW,
+                                      multi_start=True)
+    launches = kernels.launch_counts()["a12_accum"]
+    forms = sum(c.pop("stats").count_form for c in solves)
+    coarse, mid = _coarse_and_mid(solves)
+    del solves
+    err = max(phase_window_kernel(coarse, name="12b coarse stage", graphed=False)[0],
+              phase_window_kernel(mid, name="12b mid variant", graphed=False)[0])
+    del coarse, mid
+    torch.cuda.empty_cache()
+    print(f"12b {name}: " + json.dumps(row), flush=True)
+    print(f"12b {name}: rotation RMSE {row['rmse_init_deg']:.4f} -> "
+          f"{row['rmse_refined_deg']:.4f} deg, selected {row['selected_variant']}, "
+          f"{row['lm_iterations']} LM iterations in {row['wall_s']:.2f} s, A12 launches "
+          f"{launches} = {forms} forming passes; the TPU's row (emba_tpu): "
+          f"{SUITE_ROW_TPU}", flush=True)
+    _require(np.isfinite(row["rmse_refined_deg"])
+             and row["rmse_refined_deg"] < row["rmse_init_deg"],
+             f"12b: RMSE did not fall ({row['rmse_init_deg']} -> {row['rmse_refined_deg']})")
+    _require(row["selected_variant"] in ("curr", "mid", "curr+c2f", "mid+c2f"),
+             f"12b: selected {row['selected_variant']}")
+    _require(launches == forms > 0,
+             f"12b: {launches} A12 launches != {forms} forming passes")
+    return launches, err
+
+
+def phase_4k(device):
+    """12c: the 4096x2048 bench problem, two compacted windows. Returns
+    (A12 launches {window: (fused, host)}, max abs err, the 4M window's
+    kernel case, the cap from its bytes an event)."""
+    from emba_tpu_torch.pipeline import CLASSIC_CAP_LARGE_ROWS, auto_compact_cap
+    from emba_tpu_torch.probes.profile_fused import bench_scene, bench_window
+    from emba_tpu_torch.probes.suite_run import CAP_MEMORY_SHARE, CARD_BYTES, cap_from
+
+    t0 = time.perf_counter()
+    scene, traj0, sensor = bench_scene(PANO_4K_HEIGHT)
+    hw = scene.gx.size
+    print(f"12c: the bench scene at {scene.gx.shape[1]}x{scene.gx.shape[0]}: "
+          f"{len(scene.t)} events rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _require(len(scene.t) >= max(WINDOWS_4K),
+             f"12c: the render holds {len(scene.t)} events, fewer than {max(WINDOWS_4K)}")
+    launches, err, case, per_ev = {}, 0.0, None, {}
+    for n in WINDOWS_4K:
+        cap = auto_compact_cap(hw, n, 3)
+        _require(cap is not None, f"12c: no compaction for {n} events")
+        ctx = bench_window(scene, traj0, sensor, n, device, compact_cap=cap)
+        name = f"12c {n} events cap {cap}"
+        e, dropped, active, r_pad = check_forming(name, ctx)
+        _require(dropped == 0, f"{name}: {dropped} measurements dropped")
+        c = phase_window_kernel(ctx, name=f"{name} first forming pass", graphed=True,
+                                exact=False)
+        runs = _fused_and_host(name, ctx)
+        for mode, (loop_s, setup_s, pa, pr, nl) in runs.items():
+            print(f"{name} {mode}: loop {loop_s:.4f} s, set-up {setup_s:.4f} s; peak "
+                  f"{pa / 1e9:.3f} GB allocated, {pr / 1e9:.3f} GB reserved: {pa / n:.1f} / "
+                  f"{pr / n:.1f} bytes an event; A12 launches {nl}", flush=True)
+        launches[n] = (runs["fused"][4], runs["host"][4])
+        per_ev[n] = max(runs["fused"][3], runs["host"][3]) / n
+        err = max(err, e, c[0])
+        case = c
+        del ctx
+    big = max(WINDOWS_4K)
+    print(f"12c: classic-window cap above 2^20 rows from the {big}-event window: "
+          f"{cap_from(per_ev[big])} events ({CAP_MEMORY_SHARE} x {CARD_BYTES:.0f} bytes / "
+          f"{per_ev[big]:.1f} bytes an event reserved, the larger of fused and host); "
+          f"pipeline.CLASSIC_CAP_LARGE_ROWS {CLASSIC_CAP_LARGE_ROWS}", flush=True)
+    return launches, err, case, cap_from(per_ev[big])
+
+
+def _f64_window(ctx):
+    """``ctx``'s window and start state in f64 on the same device."""
+    import torch
+
+    dev = ctx["dev"]
+    dev64 = dataclasses.replace(dev, **{
+        f.name: getattr(dev, f.name).double() for f in dataclasses.fields(dev)
+        if getattr(dev, f.name) is not None and getattr(dev, f.name).is_floating_point()})
+    return dict(ctx, dev=dev64, start=tuple(t.to(torch.float64) for t in ctx["start"]))
+
+
+def phase_compact_1k(ctx):
+    """12d: the 1024x512 bench window compacted. At a cap above its active
+    pixels: in f32 through the kernel, the uncompacted host loop's steps
+    (the final cost to COMPACT_F32_REL_TOL); the same two f32 windows with
+    the plain forming pass, the same steps and each final cost to
+    COMPACT_F32_REL_TOL of the kernel's at its row space; in f64 with the
+    plain forming pass, compacted against uncompacted, the same steps and
+    the final cost to COMPACT_F64_REL_TOL. At an undersized cap: the kernel
+    and the plain version form alike and drop alike. Returns (A12
+    launches, max abs err)."""
+    import torch
+
+    from emba_tpu_torch import kernels, solver
+
+    cfg = dataclasses.replace(ctx["cfg"], compact_cap=CAP_ABOVE)
+    kernels.reset_launch_counts()
+    k, gx, gy, st = solver.solve_window(*ctx["start"], ctx["dev"], cfg, ctx["lm"],
+                                        fix_first=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["a12_accum"]
+    _finite("12d", (k, gx, gy))
+    ref = ctx["host"][3]
+    c_ref, c_got = _final_cost(ref), _final_cost(st)
+    rel = abs(c_got - c_ref) / abs(c_ref)
+    print(f"12d cap {CAP_ABOVE}, f32: {len(st.iterations)} iterations {_accepts(st)} vs "
+          f"uncompacted {len(ref.iterations)} {_accepts(ref)}; final cost {c_got:.6f} vs "
+          f"{c_ref:.6f} (rel {rel:.2e}); active pixels per form "
+          f"{st.active_px_per_form}; dropped {st.dropped_meas_per_form}; loop "
+          f"{st.time_total_s:.4f} s vs uncompacted {ref.time_total_s:.4f} s; A12 launches "
+          f"{launches} = {st.count_form} forming passes", flush=True)
+    _require(len(st.iterations) == len(ref.iterations) and _accepts(st) == _accepts(ref),
+             "12d: the compacted window took other steps than the uncompacted one")
+    _require(rel <= COMPACT_F32_REL_TOL, f"12d: f32 final cost rel {rel:.2e}")
+    _require(launches == st.count_form, "12d: A12 launches != forming passes")
+    _require(max(st.dropped_meas_per_form) == 0, "12d: dropped measurements")
+    del k, gx, gy
+
+    # the same two f32 windows with the plain forming pass: what the row
+    # space moves without the kernel, and what the kernel moves at each row
+    # space (f32 rounding either way: see COMPACT_F32_REL_TOL)
+    with _plain_forming():
+        plain = [solver.solve_window(*ctx["start"], ctx["dev"], c, ctx["lm"],
+                                     fix_first=True)[3] for c in (ctx["cfg"], cfg)]
+    torch.cuda.synchronize()
+    p0, p1 = _final_cost(plain[0]), _final_cost(plain[1])
+    rel_plain = abs(p1 - p0) / abs(p0)
+    rel_k = (abs(c_ref - p0) / abs(p0), abs(c_got - p1) / abs(p1))
+    print(f"12d cap {CAP_ABOVE}, f32 with the plain forming pass: {_accepts(plain[1])} vs "
+          f"uncompacted {_accepts(plain[0])}; final cost {p1:.6f} vs {p0:.6f} (rel "
+          f"{rel_plain:.2e}, the kernel's pair {rel:.2e}); kernel against plain at the "
+          f"same row space: uncompacted rel {rel_k[0]:.2e}, compacted {rel_k[1]:.2e}",
+          flush=True)
+    _require(all(_accepts(r) == _accepts(ref) for r in plain),
+             "12d: the plain f32 windows took other steps than the kernel's")
+    _require(max(rel_k) <= COMPACT_F32_REL_TOL,
+             f"12d: f32 final cost of the kernel against the plain forming pass at the "
+             f"same row space rel {max(rel_k):.2e} > {COMPACT_F32_REL_TOL:.0e}")
+    del plain
+
+    w64 = _f64_window(ctx)
+    with _plain_forming():
+        runs = [solver.solve_window(*w64["start"], w64["dev"], c, ctx["lm"],
+                                    fix_first=True)[3] for c in (ctx["cfg"], cfg)]
+    torch.cuda.synchronize()
+    c0, c1 = _final_cost(runs[0]), _final_cost(runs[1])
+    rel64 = abs(c1 - c0) / abs(c0)
+    print(f"12d cap {CAP_ABOVE}, f64 with the plain forming pass: {_accepts(runs[1])} vs "
+          f"uncompacted {_accepts(runs[0])}; final cost {c1:.9f} vs {c0:.9f} (rel "
+          f"{rel64:.2e}); the f32 runs' costs against these: uncompacted "
+          f"{abs(c_ref - c0) / c0:.2e}, compacted {abs(c_got - c1) / c1:.2e}", flush=True)
+    _require(_accepts(runs[0]) == _accepts(runs[1]) and rel64 <= COMPACT_F64_REL_TOL,
+             f"12d: f64 compacted run differs from the uncompacted one (rel {rel64:.2e})")
+    del w64, runs
+
+    under = dict(ctx, cfg=dataclasses.replace(ctx["cfg"], compact_cap=CAP_UNDER))
+    e, dropped, active, _r = check_forming(f"12d undersized cap {CAP_UNDER}", under)
+    _require(dropped > 0 and active > CAP_UNDER,
+             f"12d: the cap {CAP_UNDER} dropped nothing ({active} active)")
+    c = phase_window_kernel(under, name=f"12d undersized cap {CAP_UNDER}", graphed=False,
+                            exact=False)
+    return launches, max(e, c[0])
+
+
+def phase_light(ctx):
+    """12e: light-trial LM on the 1024x512 bench window, fused and host,
+    against the classic runs. Returns ({run: A12 launches}, loop seconds
+    {classic, light})."""
+    import torch
+
+    from emba_tpu_torch import kernels, solver
+
+    light = dict(ctx, cfg=dataclasses.replace(ctx["cfg"], light_trial=True))
+    _fused(ctx)  # captures the classic graphs
+    classic = _fused(ctx)
+    _fused(light)  # captures the light graphs
+    (k, gx, gy, cost, it, conv, trace), st, launches, peak, wall = _fused(light)
+    _finite("12e fused", (k, gx, gy))
+    kernels.reset_launch_counts()
+    host = solver.solve_window(*ctx["start"], ctx["dev"], light["cfg"], ctx["lm"],
+                               fix_first=True)
+    torch.cuda.synchronize()
+    launches_h = kernels.launch_counts()["a12_accum"]
+    ref = ctx["host"][3]
+    _loops_agree("12e light trial", (k, gx, gy, cost, it, conv, trace), st, launches,
+                 host, launches_h)
+    c_ref = _final_cost(ref)
+    rel = abs(float(cost) - c_ref) / abs(c_ref)
+    loops = {"classic": classic[1].loop_s, "light": st.loop_s}
+    print(f"12e: light trial vs classic: {int(it)} vs {len(ref.iterations)} iterations, "
+          f"{_accepts(host[3])} vs {_accepts(ref)}; final cost rel {rel:.2e}; fused loop "
+          f"{st.loop_s:.4f} s vs classic {classic[1].loop_s:.4f} s; host loop "
+          f"{host[3].time_total_s:.4f} s (objective {host[3].time_objective_s:.4f}, form "
+          f"{host[3].time_form_s:.4f}) vs classic {ref.time_total_s:.4f} s (objective "
+          f"{ref.time_objective_s:.4f}, form {ref.time_form_s:.4f}); peak {peak}",
+          flush=True)
+    _require(int(it) == len(ref.iterations) and _accepts(host[3]) == _accepts(ref),
+             "12e: the light trial took other steps than the classic loop")
+    _require(rel <= FUSED_COST_REL_TOL, f"12e: final cost rel {rel:.2e} against classic")
+    return {"fused": launches, "host": launches_h}, loops
+
 
 
 def main() -> int:
@@ -897,8 +1388,15 @@ def main() -> int:
     a12_launches = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
+    with tempfile.TemporaryDirectory() as d:
+        pipeline_launches, pipe_err, scene_files, rmse_run3 = phase_pipeline(device, d)
+        p12 = {}
+        p12["12a"], err_a = phase_multi_start(scene_files, rmse_run3)
+    p12["12b"], err_b = phase_suite_row()
+    p12["12d"], err_d = phase_compact_1k(ctx)
+    p12["12e"], light_loops = phase_light(ctx)
     del ctx
-    pipeline_launches, pipe_err = phase_pipeline(device)
+    p12["12c"], err_c, case_4k, cap_4k = phase_4k(device)
 
     # the A12 "ms" is the eager wrapper call on the synthetic main-shape case,
     # as in every earlier report; beside it the same call replayed from a
@@ -910,7 +1408,7 @@ def main() -> int:
         "source": "emba_tpu_torch/kernels/csrc/a12_accum.cu",
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
         "launches": a12_launches,
-        "max_abs_err": max(syn[0], win[0], pipe_err),
+        "max_abs_err": max(syn[0], win[0], pipe_err, err_a, err_b, err_c, err_d),
         "ms": syn[1],
         "plain_ms": syn[2],
         "bound_ms": syn[3],
@@ -922,6 +1420,13 @@ def main() -> int:
         "window_plain_ms": win[2],
         "window_bound_ms": win[3],
         "pipeline_launches": pipeline_launches,
+        "phase12_launches": p12,
+        "compact_4k_ms": case_4k[1],
+        "compact_4k_graph_ms": case_4k[5],
+        "compact_4k_plain_ms": case_4k[2],
+        "compact_4k_bound_ms": case_4k[3],
+        "classic_cap_large_rows_measured": cap_4k,
+        "light_trial_loop_s": light_loops,
     }, {
         "name": "gather_sum",
         "route": "cuda",

@@ -6,10 +6,10 @@ Subcommands:
   convert-bag  rosbag -> events.npz
   synth        generate a synthetic dataset (events + GT trajectory + maps)
   eval         rotation RMSE of a trajectory against ground truth
-  suite        the synthetic accuracy suite (not ported yet)
+  suite        the synthetic accuracy suite (``eval_suite``)
 
-``run`` takes ``--device {cuda,cpu}`` (default cuda): without a CUDA
-device, ``--device cuda`` raises; the CPU runs only when asked for.
+``run`` and ``suite`` take ``--device {cuda,cpu}`` (default cuda): without
+a CUDA device, ``--device cuda`` raises; the CPU runs only when asked for.
 """
 
 from __future__ import annotations
@@ -246,16 +246,16 @@ def _cmd_eval(args):
 
 
 def _cmd_suite(args):
-    raise NotImplementedError(
-        "suite: the synthetic accuracy suite (eval_suite) is not ported yet, see "
-        "ROADMAP queue 1 item 13")
+    from .eval_suite import run_suite
+
+    return run_suite(args.out, device=args.device)
 
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line) and run the subcommand.
     Called in process with an ``argv`` list, it returns what the subcommand
     returns (``run``: the ``pipeline.RunResult``; ``eval``: its JSON
-    object); from the command line it returns None, so the exit status is
+    object; ``suite``: its rows); from the command line it returns None, so the exit status is
     0."""
     p = argparse.ArgumentParser(prog="emba-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -306,20 +306,19 @@ def main(argv=None):
     )
     r.add_argument(
         "--coarse-to-fine", action="store_true",
-        help="half-resolution pose pre-solve per window (not ported yet: "
-        "raises, ROADMAP item 13)",
+        help="half-resolution pose pre-solve per window",
     )
     r.add_argument(
         "--multi-start", action="store_true",
-        help="solve each window with four variants and keep the best (not "
-        "ported yet: raises, ROADMAP item 13)",
+        help="solve each window with the four (sample mode x coarse-to-fine) "
+        "variants and keep the one of lowest data cost",
     )
     r.add_argument("--thres-valid-pixel", dest="thres_valid_pixel", type=int)
     r.add_argument("--use-cg", action="store_true")
     r.add_argument(
         "--compact-cap", dest="compact_cap", type=int,
-        help="active-pixel compaction cap (not ported yet: raises, ROADMAP "
-        "item 10)",
+        help="active-pixel compaction cap (default: chosen by the pipeline "
+        "for panoramas of 2M pixels or more)",
     )
     r.add_argument(
         "--stream-chunk", dest="stream_chunk", type=int,
@@ -389,8 +388,11 @@ def main(argv=None):
     e.add_argument("--no-align", action="store_true")
     e.set_defaults(fn=_cmd_eval)
 
-    sv = sub.add_parser("suite", help="synthetic accuracy suite (not ported yet)")
+    sv = sub.add_parser("suite", help="synthetic accuracy/throughput suite")
     sv.add_argument("--out", default="suite_results.json")
+    sv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the rows are solved (default cuda; raises when "
+                    "there is no CUDA device)")
     sv.set_defaults(fn=_cmd_suite)
 
     args = p.parse_args(argv)

@@ -36,8 +36,9 @@ class BAConfig:
     # Map sampling point of the LEGM residual: "curr" (the reference
     # formulation) or "mid" (midpoint-rule quadrature).
     sample_mode: str = "curr"
-    # Coarse-to-fine pose pre-solve and multi-start windows: not ported yet
-    # (the pipeline raises, ROADMAP item 13).
+    # Coarse-to-fine: each window's pose pre-solved at a half-resolution
+    # panorama. Multi-start: each window solved with the four (sample_mode
+    # x coarse_to_fine) variants, the one of lowest data cost kept.
     coarse_to_fine: bool = False
     multi_start: bool = False
 
@@ -83,9 +84,11 @@ class BAConfig:
     # = no fence: no fused-window failure at any size has been seen on the
     # card.
     fused_event_cap: int | None = None
-    # Active-pixel compaction (ROADMAP item 10), streamed forming and its
-    # light tier (item 11), light-trial LM (item 10): not ported yet;
-    # ModelConfig raises for each.
+    # Active-pixel compaction cap (None: the pipeline picks one for
+    # panoramas of 2M pixels or more and retunes it between windows);
+    # light-trial LM (cost-only trials, Jacobians recomputed on accept).
+    # Streamed forming and its light tier (ROADMAP item 11): not ported
+    # yet; ModelConfig raises for each.
     compact_cap: int | None = None
     stream_chunk: int | None = None
     stream_light: bool | None = None

@@ -1,9 +1,11 @@
 """Evaluation metrics: rotation RMSE against ground truth, with SO(3)
-alignment (counterpart of ``emba_tpu/metrics.py``), on numpy."""
+alignment, and the event-based photometric error (counterpart of
+``emba_tpu/metrics.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import spline
 
@@ -31,3 +33,11 @@ def trajectory_rmse_deg(traj: "spline.Trajectory", times: np.ndarray,
                         R_gt: np.ndarray, align: bool = True) -> float:
     R_est = np.asarray(traj.evaluate(times))
     return rotation_rmse_deg(R_est, R_gt, align=align)
+
+
+def photometric_error(e) -> float:
+    """The squared event-based photometric error sum(e^2) of a residual
+    vector (a tensor, summed on its device, or an array)."""
+    if isinstance(e, torch.Tensor):
+        return float(torch.sum(e * e))
+    return float(np.sum(np.asarray(e) ** 2))

@@ -10,7 +10,10 @@ Counterpart of the classic path of ``emba_tpu/model.py``:
   ``Jp = -G . dpm_prev/dcp``; map Jacobian ``dp``;
 * Schur-structured normal equations (A11, per-pixel 2x2 A22, A12, b1, b2)
   with the L2 map regularizer, formed by ``kernels.a12_accum`` (the CUDA
-  kernel on the card, its plain version on the CPU);
+  kernel on the card, its plain version on the CPU), over the full pixel
+  domain or, with ``compact_cap``, over the compacted active pixels;
+* the light linearization (``need_deriv=False``: residual fields only) and
+  its forming pass :func:`form_normal_eq_light`, for ``light_trial``;
 * the Schur solve as two GEMMs over the A12 column planes and one Cholesky.
 
 Per-event arrays keep the reference layouts: (N,) vectors, (3, N)
@@ -29,11 +32,15 @@ from .camera import EquirectangularCamera
 from .kernels import a12_accum
 
 _LATER = {
-    "compact_cap": "ROADMAP queue 1 item 10 (compact_cap)",
     "stream_chunk": "ROADMAP queue 1 item 11 (streamed tiers)",
     "stream_light": "ROADMAP queue 1 item 11 (streamed tiers)",
-    "light_trial": "ROADMAP queue 1 item 10 (light_trial)",
 }
+
+# Row alignment of a compacted row space: the reference's TILE_PX, so that
+# an undersized cap keeps the same slots, and drops the same active
+# pixels, in both packages (the full pixel domain keeps the kernel's
+# ROW_ALIGN: its rows past HW are inactive either way).
+COMPACT_ALIGN = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +66,8 @@ class ModelConfig:
     stream_light: bool = False
 
     def __post_init__(self):
+        if self.compact_cap is not None and self.compact_cap < 1:
+            raise ValueError(f"ModelConfig.compact_cap must be >= 1, got {self.compact_cap}")
         for name, where in _LATER.items():
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(f"ModelConfig.{name}: not ported yet, see {where}")
@@ -160,23 +169,29 @@ class Linearization:
     i_p: torch.Tensor  # (N,) int32 segment of prev event
 
 
-def linearize(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig):
-    """Warp + pair + residual + per-measurement Jacobians (the reference's
-    derivative mode; its light ``need_deriv=False`` mode comes with
-    ``light_trial``)."""
+def linearize(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+              need_deriv: bool = True):
+    """Warp + pair + residual + per-measurement Jacobians. With
+    ``need_deriv=False`` the light linearization: the (N,)-sized residual
+    fields only, no warp Jacobians and no Jacobian rows in the prev gather
+    (``Jc`` and ``Jp`` are empty (D, 0) placeholders)."""
     pm, cp_idx, dpm_dcp = warp.warp_events(
         knots, dev.batch_s, dev.batch_u, dev.batch_ids, dev.bearings, cfg.pano,
-        cfg.spline_order,
+        cfg.spline_order, need_deriv,
     )
     pmx, pmy = pm
     d = cfg.dim_block
     prev = dev.prev_idx.long()
-    # (pmx, pmy) and the 2D Jacobian rows of the prev event in one gather
-    prev_src = torch.cat([torch.stack([pmx, pmy]), dpm_dcp.reshape(2 * d, -1)])
-    prev_g = prev_src[:, prev]
+    if need_deriv:
+        # (pmx, pmy) and the 2D Jacobian rows of the prev event in one gather
+        prev_src = torch.cat([torch.stack([pmx, pmy]), dpm_dcp.reshape(2 * d, -1)])
+        prev_g = prev_src[:, prev]
+        pm_prev, dpm_prev = prev_g[:2], prev_g[2:].reshape(2, d, -1)
+    else:
+        pm_prev, dpm_prev = torch.stack([pmx, pmy])[:, prev], None
     return linearize_from_warp(
-        pmx, pmy, cp_idx, dpm_dcp, prev_g[:2], prev_g[2:].reshape(2, d, -1),
-        cp_idx[prev], dev.has_prev, dev.pol_signed, Gx, Gy, cfg,
+        pmx, pmy, cp_idx, dpm_dcp, pm_prev, dpm_prev, cp_idx[prev], dev.has_prev,
+        dev.pol_signed, Gx, Gy, cfg, need_deriv,
     )
 
 
@@ -221,22 +236,33 @@ def _pose_jac_coeffs(g_at, dx, dy, cfg):
     )
 
 
-def _stacked_gmaps(Gx, Gy):
-    """(5, HW) stacked map planes: values and second-order gradients."""
+def _stacked_gmaps(Gx, Gy, need_deriv: bool = True):
+    """(5, HW) stacked map planes, values and second-order gradients; (2,
+    HW), the values only, without ``need_deriv``."""
+    if not need_deriv:
+        return torch.stack([Gx.reshape(-1), Gy.reshape(-1)])
     gxx, gxy, gyy = second_order_gradients(Gx, Gy)
     return torch.stack([Gx.reshape(-1), Gy.reshape(-1), gxx.reshape(-1),
                         gxy.reshape(-1), gyy.reshape(-1)])
 
 
 def linearize_from_warp(pmx, pmy, cp_idx, dpm_dcp, pm_prev, dpm_prev, i_p,
-                        has_prev, pol_signed, Gx, Gy, cfg: ModelConfig):
-    """Residual + Jacobian core given warped curr events and their prev data."""
-    gmaps = _stacked_gmaps(Gx, Gy)
+                        has_prev, pol_signed, Gx, Gy, cfg: ModelConfig,
+                        need_deriv: bool = True):
+    """Residual + Jacobian core given warped curr events and their prev
+    data; without ``need_deriv`` the residual fields only (``dpm_dcp`` and
+    ``dpm_prev`` are not read)."""
+    gmaps = _stacked_gmaps(Gx, Gy, need_deriv)
     dx, dy, inlier, pm_pix, g_at, e = _pair_residual(
         pmx, pmy, pm_prev[0], pm_prev[1], has_prev, pol_signed, gmaps, cfg
     )
     num_ev_map = torch.zeros(cfg.num_pix, dtype=torch.int32, device=pmx.device)
     num_ev_map.index_add_(0, pm_pix.long(), inlier.to(torch.int32))
+
+    if not need_deriv:
+        empty = torch.zeros((cfg.dim_block, 0), dtype=pmx.dtype, device=pmx.device)
+        return Linearization(e=e, inlier=inlier, pm_pix=pm_pix, num_ev_map=num_ev_map,
+                             dx=dx, dy=dy, Jc=empty, Jp=empty, i_c=cp_idx, i_p=i_p)
 
     tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
     Jc = tx[None, :] * dpm_dcp[0] + ty[None, :] * dpm_dcp[1]  # (D, N)
@@ -286,7 +312,10 @@ def irls_weights(e, cfg: ModelConfig):
 class NormalEq:
     """Schur-structured normal equations over the map row space. A12 is
     (R_pad, 2*dp_pad): the Gx plane in columns [0:dp_pad), the Gy plane in
-    [dp_pad:2*dp_pad). Rows are pano pixels (R_pad >= HW)."""
+    [dp_pad:2*dp_pad). A row is a pano pixel (R_pad >= HW) or, with
+    ``compact_cap``, the slot of an active pixel (R_pad = the cap rounded
+    up to ``COMPACT_ALIGN``); ``pix2row`` maps pixels to rows (R_pad:
+    dropped)."""
 
     A11: torch.Tensor  # (3K, 3K)
     b1: torch.Tensor  # (3K,)
@@ -297,45 +326,85 @@ class NormalEq:
     b2_y: torch.Tensor
     A12: torch.Tensor  # (R_pad, 2*dp_pad)
     active: torch.Tensor  # (R_pad,) bool row validity
-    pix2row: torch.Tensor  # (HW,) int32 pano pixel -> row
+    pix2row: torch.Tensor  # (HW,) int32 pano pixel -> row (>= R_pad: dropped)
     active_pix: torch.Tensor  # (HW,) bool pixel-space activity
     active_count: torch.Tensor  # () int32
-    dropped: torch.Tensor  # () int32, always 0 without compaction
+    dropped: torch.Tensor  # () int32 measurements past the cap (0 uncompacted)
 
 
 def _row_space(num_ev_map, cfg: ModelConfig):
-    """Active-pixel mask + the full-pixel-domain row space."""
+    """Active-pixel mask + the map-domain row space: the full pixel domain,
+    or with ``compact_cap`` the active pixels in pixel order, one slot each,
+    up to the cap rounded up to ``COMPACT_ALIGN`` (the slots past the cap
+    hold rows that stay inactive, as in the reference). Everything stays
+    on the device (no size is read on the host), so a CUDA graph can hold
+    it. Returns (active, r_pad, pix2row, row_active)."""
     hw = cfg.num_pix
+    device = num_ev_map.device
     active = num_ev_map >= cfg.thres_valid_pixel
-    r_pad = a12_accum.round_up(hw, a12_accum.ROW_ALIGN)
-    pix2row = torch.arange(hw, dtype=torch.int32, device=num_ev_map.device)
-    row_active = torch.nn.functional.pad(active, (0, r_pad - hw))
+    if cfg.compact_cap is None:
+        r_pad = a12_accum.round_up(hw, a12_accum.ROW_ALIGN)
+        pix2row = torch.arange(hw, dtype=torch.int32, device=device)
+        row_active = torch.nn.functional.pad(active, (0, r_pad - hw))
+        return active, r_pad, pix2row, row_active
+    r_dom = min(cfg.compact_cap, hw)
+    r_pad = a12_accum.round_up(r_dom, COMPACT_ALIGN)
+    compact_id = torch.cumsum(active.to(torch.int32), 0, dtype=torch.int32) - 1
+    # active pixels -> their slot, slots past r_pad and inactive pixels ->
+    # r_pad (dropped everywhere)
+    pix2row = torch.where(active & (compact_id < r_pad), compact_id, r_pad).to(torch.int32)
+    num_active = torch.sum(active.to(torch.int32))
+    row_active = (torch.arange(r_pad, device=device)
+                  < torch.clamp(num_active, max=r_dom))
     return active, r_pad, pix2row, row_active
 
 
-def _meas_weights(e, inlier, pm_pix, active, cfg, dt):
+def _meas_weights(e, inlier, pm_pix, active, cfg, dt, in_row=None):
     """Per-measurement weight wA: the IRLS weight of an inlier on an active
-    pixel, else 0 (the kernel derives the residual weight wA * e itself)."""
+    pixel (and, where ``in_row`` is given, on a row of the row space),
+    else 0 (the kernel derives the residual weight wA * e itself)."""
     w = inlier & active[pm_pix.long()]
+    if in_row is not None:
+        w = w & in_row
     yi = irls_weights(e, cfg)
     return torch.where(w, yi, torch.zeros_like(yi)).to(dt)
+
+
+def forming_inputs(lin: Linearization, cfg: ModelConfig, dt):
+    """What one forming pass hands the A12 kernel, and its row space:
+    (row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)).
+    Uncompacted, a measurement's row is its pixel. Compacted, it is the
+    pixel's slot; a measurement on an active pixel past the cap is dropped
+    from every block (else the system turns asymmetric) and counted in
+    ``dropped``, on the device."""
+    active, r_pad, pix2row, row_active = _row_space(lin.num_ev_map, cfg)
+    if cfg.compact_cap is None:
+        row_of_meas = lin.pm_pix
+        wA = _meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, dt)
+        dropped = torch.zeros((), dtype=torch.int32, device=lin.e.device)
+    else:
+        row_of_meas = pix2row[lin.pm_pix.long()]
+        in_row = row_of_meas < r_pad
+        wA = _meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, dt, in_row)
+        used = lin.inlier & active[lin.pm_pix.long()]
+        dropped = torch.sum((used & ~in_row).to(torch.int32)).to(torch.int32)
+    return row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)
 
 
 def form_normal_eq(lin: Linearization, Gx, Gy, cfg: ModelConfig, num_knots: int,
                    reg_scale=None) -> NormalEq:
     """Build the Schur-structured normal equations with the L2 map
     regularizer. A measurement enters iff it is an inlier and lands on an
-    active pixel (>= thres_valid_pixel inliers)."""
+    active pixel (>= thres_valid_pixel inliers) that has a row."""
     dt = lin.e.dtype
     dim_pose = 3 * num_knots
-    active, r_pad, pix2row, row_active = _row_space(lin.num_ev_map, cfg)
-    wA = _meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, dt)
+    row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active) = forming_inputs(
+        lin, cfg, dt)
     a12, px5, a11b = a12_accum.a12_accumulate(
-        lin.pm_pix, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA,
+        row_of_meas, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA,
         r_pad, dim_pose, cfg.spline_order,
     )
     dp_pad = a12.shape[1] // 2
-    dropped = torch.zeros((), dtype=torch.int32, device=lin.e.device)
     return _finish_normal_eq(
         a11b[:dim_pose, :dim_pose], a11b[dp_pad, :dim_pose], px5[:, 0], px5[:, 1],
         px5[:, 2], px5[:, 3], px5[:, 4], a12, row_active, pix2row, active, Gx, Gy,
@@ -343,19 +412,43 @@ def form_normal_eq(lin: Linearization, Gx, Gy, cfg: ModelConfig, num_knots: int,
     )
 
 
+def form_normal_eq_light(lin: Linearization, knots, Gx, Gy, dev: DeviceWindow,
+                         cfg: ModelConfig, num_knots: int, reg_scale=None) -> NormalEq:
+    """The forming pass of ``light_trial``: ``lin`` is a light
+    linearization (``linearize(..., need_deriv=False)``); this pass
+    recomputes the (D, N) Jacobians (the warp's derivative chain and the
+    prev gather of its rows) at ``knots`` and forms the normal equations,
+    the same ops on the same inputs as ``form_normal_eq(linearize(...))``.
+    LM runs it after accepted steps only, so a rejected trial pays for the
+    cost alone."""
+    d = cfg.dim_block
+    _, _, dpm = warp.warp_events(knots, dev.batch_s, dev.batch_u, dev.batch_ids,
+                                 dev.bearings, cfg.pano, cfg.spline_order)
+    dpm_prev = dpm.reshape(2 * d, -1)[:, dev.prev_idx.long()].reshape(2, d, -1)
+    g_at = _stacked_gmaps(Gx, Gy)[:, lin.pm_pix.long()]
+    tx, ty, hx, hy = _pose_jac_coeffs(g_at, lin.dx, lin.dy, cfg)
+    Jc = tx[None, :] * dpm[0] + ty[None, :] * dpm[1]
+    Jp = hx[None, :] * dpm_prev[0] + hy[None, :] * dpm_prev[1]
+    full = dataclasses.replace(lin, Jc=Jc, Jp=Jp)
+    return form_normal_eq(full, Gx, Gy, cfg, num_knots, reg_scale)
+
+
 def _finish_normal_eq(A11, b1, a22xx, a22xy, a22yy, b2x, b2y, A12, row_active,
                       pix2row, active_pix, Gx, Gy, cfg, r_pad, dt, dropped,
                       reg_scale=None):
     """Apply the L2 map regularizer on active rows and assemble the
-    NormalEq (rows are pixels: ``pix2row`` is the identity)."""
+    NormalEq; the map values reach their rows through ``pix2row``."""
     alpha = cfg.alpha if reg_scale is None else cfg.alpha * reg_scale
     act_f = row_active.to(dt)
-    hw = cfg.num_pix
+    rows = pix2row.long()
 
     def to_rows(G):
-        g = torch.where(active_pix, G.reshape(-1).to(dt), torch.zeros((), dtype=dt,
-                                                                       device=G.device))
-        return torch.nn.functional.pad(g, (0, r_pad - hw))
+        # one active pixel a row at most: the sums are exact; slot r_pad
+        # takes the dropped pixels and is cut off
+        g = torch.where(active_pix, G.reshape(-1).to(dt),
+                        torch.zeros((), dtype=dt, device=G.device))
+        out = torch.zeros(r_pad + 1, dtype=dt, device=G.device)
+        return out.index_add_(0, rows, g)[:r_pad]
 
     gx_row, gy_row = to_rows(Gx), to_rows(Gy)
     return NormalEq(

@@ -12,6 +12,10 @@ orchestrator ``src/emba/emba.cpp``):
   preparation of window k+1 runs on a worker thread while window k solves;
   it is numpy only, so it makes no CUDA call while the main thread captures
   a window's CUDA graphs;
+* the window's variants: a coarse-to-fine pose pre-solve at half the
+  panorama's resolution, and multi-start (four variants, the one of lowest
+  data cost kept); the automatic active-pixel compaction cap of large
+  panoramas, retuned after each window from its active-pixel count;
 * data recording (params.txt, iterations.txt, per-iteration map dumps,
   refined TUM trajectory, maps, runtime.json) and window-boundary and
   mid-window checkpoints with resume.
@@ -28,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -42,15 +47,15 @@ from .device import require_cuda
 
 # Options whose code is not ported yet: setting one raises at run()
 # (ModelConfig raises for its own, model._LATER).
-_COMPACTION = model._LATER["compact_cap"]
 _STREAMING = model._LATER["stream_chunk"]
 _SHARDED = "ROADMAP queue 1 item 14 (sharded windows)"
 _NOT_PORTED = {
-    "coarse_to_fine": "ROADMAP queue 1 item 13 (coarse_to_fine)",
-    "multi_start": "ROADMAP queue 1 item 13 (multi_start)",
     "stream_light": _STREAMING,
     "super_res_height": "ROADMAP queue 1 item 11 (streamed map-only super-resolution)",
 }
+# The variants of a multi-start window, in the reference pipeline's order:
+# (sample_mode, coarse_to_fine).
+MULTI_START = (("curr", False), ("curr", True), ("mid", False), ("mid", True))
 
 
 def median_blur_3x3(img: np.ndarray) -> np.ndarray:
@@ -64,15 +69,57 @@ def median_blur_3x3(img: np.ndarray) -> np.ndarray:
 
 
 def auto_compact_cap(hw: int, num_events: int, thres_valid_pixel: int):
-    """The compaction cap the reference turns on by itself for large
-    panoramas (``emba_tpu/pipeline.py:47-60``): actives <= num_events /
-    thres, rounded up to a power of two; None when compaction would not
-    shrink the solve domain (panoramas below 2M pixels, dense coverage)."""
+    """The compaction cap the pipeline turns on by itself for large
+    panoramas: a pixel needs ``thres_valid_pixel`` events to be active, so
+    actives <= num_events / thres, rounded up to a power of two (few
+    distinct shapes, so few graph captures). None when compaction would
+    not shrink the solve domain (panoramas below 2M pixels, dense
+    coverage)."""
     bound = num_events // max(1, thres_valid_pixel) + 1
     cap = 1 << max(12, int(np.ceil(np.log2(bound))))
     if hw >= 2 * 1024 * 1024 and cap < hw // 2:
         return cap
     return None
+
+
+def retune_compact_cap(observed_active: int, hw: int) -> int:
+    """The cap for the next window from the active pixels observed in the
+    window just solved: next_pow2(2 * observed), floored at 4096 and
+    clamped to next_pow2(hw). The power-of-two grid and the 2x headroom
+    give hysteresis: the cap changes only when the observed count leaves
+    (cap/4, cap/2] of the current cap."""
+    desired = 1 << max(12, int(np.ceil(np.log2(max(1, 2 * observed_active)))))
+    return min(desired, 1 << int(np.ceil(np.log2(hw))))
+
+
+def count_active_pixels(knots, gx, gy, dev, mcfg) -> int:
+    """Active pixels of a solved window: pano pixels with at least
+    ``thres_valid_pixel`` inlier events at its state, from the light
+    linearization on the window's device; the one host read of the
+    count."""
+    lin = model.linearize(knots, gx, gy, dev, mcfg, need_deriv=False)
+    return int(torch.sum((lin.num_ev_map >= mcfg.thres_valid_pixel).to(torch.int32)))
+
+
+def coarse_config(mcfg: model.ModelConfig):
+    """The model of a coarse-to-fine pre-solve: the panorama at half
+    resolution (|dp| in pixels halves, the LEGM linearization's error
+    axis), the outlier cut halved (at least 1.5 px), no compaction. None
+    for a panorama of odd size, which has no 2x2 pooling: the caller skips
+    the coarse stage and logs it."""
+    if mcfg.pano_height % 2 or mcfg.pano_width % 2:
+        return None
+    return dataclasses.replace(
+        mcfg, pano_width=mcfg.pano_width // 2, pano_height=mcfg.pano_height // 2,
+        outlier_dp_norm=max(0.5 * mcfg.outlier_dp_norm, 1.5), compact_cap=None)
+
+
+def pool2(g) -> np.ndarray:
+    """A gradient map at half resolution: 2x the mean of each 2x2 block (a
+    big pixel's gradient is twice the small pixels' mean)."""
+    g = np.asarray(g)
+    h, w = g.shape
+    return 2.0 * g.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
 
 
 # Largest window (events) the classic path takes: 80% of the card's 80 GB
@@ -83,14 +130,24 @@ def auto_compact_cap(hw: int, num_events: int, thres_valid_pixel: int):
 # (1,507 allocated), so 0.8 * 80e9 / 2102 = 30.4M. The map-sized buffers
 # are counted per event there, which errs low: near the cap, a window of
 # 29,371,700 events (probes/suite_run.py, same card) peaked at 25.0 GB
-# reserved fused and 20.4 GB recording (852 and 694 bytes an event). Row
-# spaces above 2^20 (panoramas of 1-2M pixels; from 2M the reference
-# compacts) are not measured: half the cap, for an A12 up to twice as
-# tall. Above the cap the reference streams; the port raises (ROADMAP
-# item 11).
+# reserved fused and 20.4 GB recording (852 and 694 bytes an event).
+# Row spaces above 2^20 (a compacted 4K panorama): the 4096x2048 window of
+# 4,000,000 events compacted to 2^21 rows (chip_smoke.py phase 12c, same
+# card) peaked at 29.96 GB reserved through the host loop (25.52 GB
+# fused), 7,490 bytes an event: 0.8 * 80e9 / 7490 = 8.5M. Above the cap
+# the reference streams; the port raises (ROADMAP item 11).
 CLASSIC_CAP_SMALL_ROWS = 30_000_000
-CLASSIC_CAP_LARGE_ROWS = CLASSIC_CAP_SMALL_ROWS // 2
+CLASSIC_CAP_LARGE_ROWS = 8_000_000
 ROWS_SMALL = 1 << 20
+# The largest row space a classic window has run at (that 4M-event window).
+# Fitted to the two windows near 25-30 GB above (2^19 rows and 29.4M
+# events, 2^21 rows and 4M), a window takes about 13 KB a row (A12 and its
+# Schur products, at ~95 knots) and 600 bytes an event, so an uncompacted
+# 4K panorama (2^23 rows, which auto_compact_cap leaves uncompacted from
+# ~6.3M events on) would need over 100 GB whatever its events: a row space
+# above this raises (ROADMAP item 11), and the per-window retune stays
+# under it.
+ROWS_LARGE = 1 << 21
 
 
 def plan_model_config(
@@ -105,23 +162,27 @@ def plan_model_config(
     classic_cap_small: int = CLASSIC_CAP_SMALL_ROWS,
     classic_cap_large: int = CLASSIC_CAP_LARGE_ROWS,
 ):
-    """The reference's pre-run decisions (``emba_tpu/pipeline.py:100-157``),
-    as decisions only: where it would turn on active-pixel compaction (a
-    panorama of 2M pixels or more) or streamed forming (the largest running
-    window above the classic cap), the port raises NotImplementedError with
-    the ROADMAP item. Returns ``mcfg`` unchanged otherwise.
+    """The reference's pre-run decisions (``emba_tpu/pipeline.py:100-157``):
+    first the compaction cap, which the pipeline picks by itself for a
+    panorama of 2M pixels or more (:func:`auto_compact_cap`), then the
+    classic-window cap of the row space after compaction. Where the
+    reference would stream (the largest running window above that cap),
+    the port raises NotImplementedError with the ROADMAP item.
 
     The largest-window count is exact: events are time-sorted, so each
     window's count is two searchsorteds, and only window starts whose
-    window runs (the loop requires t_win_end < t_ba_end + 1e-3) enter it."""
-    if mcfg.compact_cap is None:
+    window runs (the loop requires t_win_end < t_ba_end + 1e-3) enter it.
+
+    Returns ``(mcfg, auto_cap)``: ``auto_cap`` is True when the cap was
+    chosen here, and the run then retunes it after each window."""
+    auto_cap = mcfg.compact_cap is None
+    if auto_cap:
         cap = auto_compact_cap(
             mcfg.pano_width * mcfg.pano_height, len(t), mcfg.thres_valid_pixel
         )
         if cap is not None:
-            raise NotImplementedError(
-                f"a {mcfg.pano_width}x{mcfg.pano_height} panorama needs active-pixel "
-                f"compaction (cap {cap}): not ported yet, see {_COMPACTION}")
+            mcfg = dataclasses.replace(mcfg, compact_cap=cap)
+    auto_cap = auto_cap and mcfg.compact_cap is not None
 
     edges_beg = np.arange(t_ba_beg, t_ba_end, win_stride)
     edges_beg = edges_beg[edges_beg + win_size < t_ba_end + 1e-3]
@@ -133,13 +194,18 @@ def plan_model_config(
     ) if len(edges_beg) else len(t)
     per_dev = max_win_events / max(1, n_dev)
     rows = mcfg.compact_cap or (mcfg.pano_width * mcfg.pano_height)
+    if cfg.stream_chunk is None and rows > ROWS_LARGE:
+        raise NotImplementedError(
+            f"a row space of {rows} rows is above {ROWS_LARGE}, the largest a "
+            f"classic window has run at, and needs streamed forming: not ported "
+            f"yet, see {_STREAMING}")
     classic_cap = classic_cap_small if rows <= ROWS_SMALL else classic_cap_large
     if cfg.stream_chunk is None and per_dev > classic_cap:
         raise NotImplementedError(
             f"a window of {max_win_events} events is above the classic-window cap "
             f"{classic_cap} and needs streamed forming: not ported yet, see "
             f"{_STREAMING}")
-    return mcfg
+    return mcfg, auto_cap
 
 
 def _check_ported(cfg: BAConfig):
@@ -184,6 +250,21 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().to("cpu", torch.float64).numpy()
     return np.asarray(a, np.float64)
+
+
+def _merged_stats(selected, runs):
+    """``selected``'s LMStats with the counts and seconds of every run of
+    its window (coarse stages and multi-start variants), so that events/s
+    and the wall cover all of them and ``count_form`` equals the A12
+    launches; the iteration records and per-form lists stay the selected
+    run's."""
+    if len(runs) == 1:
+        return selected
+    out = dataclasses.replace(selected)
+    for name in ("time_form_s", "time_solve_s", "time_objective_s", "time_total_s",
+                 "setup_s", "count_form", "count_solve", "count_objective"):
+        setattr(out, name, sum(getattr(st, name) for st in runs))
+    return out
 
 
 class EmbaPipeline:
@@ -469,7 +550,7 @@ class EmbaPipeline:
     def run(self, resume_from: str | None = None) -> RunResult:
         cfg = self.cfg
         _check_ported(cfg)
-        mcfg = plan_model_config(
+        mcfg, auto_cap = plan_model_config(
             cfg.model_config(), cfg, self.t, self.t_ba_beg, self.t_ba_end,
             self.win_size, self.win_stride, 1,
         )
@@ -555,13 +636,28 @@ class EmbaPipeline:
                 dev = model.DeviceWindow.from_window(
                     win, self.bearing_lut, self.camera.width, self.dtype, self.device)
                 win_id = count_window
-                knots, gx_j, gy_j, stats, final_cost = self._solve(
-                    win_id, win.num_events, seg.knots, dev, mcfg, lm, first_window,
-                    resume_lm)
+                if cfg.multi_start and resume_lm is None:
+                    knots, gx_j, gy_j, stats, final_cost = self._solve_multi_start(
+                        win_id, win.num_events, seg.knots, dev, mcfg, lm, first_window)
+                else:
+                    knots0 = seg.knots
+                    coarse = []
+                    if cfg.coarse_to_fine and resume_lm is None:
+                        # skipped on a mid-window resume: the resumed knots
+                        # are past the coarse regime already
+                        knots0 = self._coarse_presolve(win_id, win.num_events, knots0,
+                                                       dev, mcfg, lm, first_window,
+                                                       coarse)
+                    knots, gx_j, gy_j, stats, final_cost = self._solve(
+                        win_id, win.num_events, knots0, dev, mcfg, lm, first_window,
+                        resume_lm)
+                    stats = _merged_stats(stats, coarse + [stats])
                 resume_lm = None  # consumed by the resumed window
                 if obs.nan_checks_enabled():
                     obs.check_finite(f"window {win_id}", knots=knots, gx=gx_j, gy=gy_j,
                                      cost=final_cost)
+                if auto_cap:
+                    mcfg = self._retune(stats, knots, gx_j, gy_j, dev, mcfg)
                 self.gx, self.gy = _host(gx_j), _host(gy_j)
                 seg = dataclasses.replace(seg, knots=_host(knots))
                 self.traj.replace_with(seg, seg.num_knots, 0, idx_cp_beg)
@@ -614,10 +710,102 @@ class EmbaPipeline:
             result_dir=self.result_dir,
         )
 
+    def _log(self, line: str):
+        if self._iter_log is not None:
+            self._iter_log.write(line + "\n")
+
+    def _retune(self, stats, knots, gx, gy, dev, mcfg):
+        """After a window under the automatic compaction cap: count its
+        active pixels on the device (one host read), record the overflow
+        past the cap (those pixels were dropped from this window's solve)
+        and return the configuration with the cap retuned for the next
+        window (:func:`retune_compact_cap`), which also repairs an
+        undersized cap. The cap stays within :data:`ROWS_LARGE`: active
+        pixels past it drop from the solve and are counted as here."""
+        observed = count_active_pixels(knots, gx, gy, dev, mcfg)
+        if not stats.active_px_per_form:
+            stats.note_active_pixels(observed)
+        stats.overflow_active_pixels = max(0, observed - mcfg.compact_cap)
+        cap = min(retune_compact_cap(observed, mcfg.pano_width * mcfg.pano_height),
+                  ROWS_LARGE)
+        return mcfg if cap == mcfg.compact_cap else dataclasses.replace(
+            mcfg, compact_cap=cap)
+
+    def _coarse_presolve(self, win_id, num_events, seg_knots, dev, mcfg, lm,
+                         first_window, stats_out):
+        """Coarse-to-fine pose pre-solve: the window's pose solved at a
+        half-resolution panorama (:func:`coarse_config`) from the current
+        map pooled 2x (:func:`pool2`), on the same fused-or-host path and
+        fence as the main solve; the coarse map is discarded. The window
+        data does not depend on the panorama (bearings and pairing), so the
+        stage reuses it. Appends the stage's LMStats to ``stats_out`` and
+        returns the refined knots (f64 numpy), or ``seg_knots`` for a
+        panorama of odd size, with a log line."""
+        mc = coarse_config(mcfg)
+        if mc is None:
+            msg = (f"win {win_id} coarse presolve skipped: odd panorama "
+                   f"{mcfg.pano_width}x{mcfg.pano_height}")
+            print(f"# {msg}", file=sys.stderr)
+            self._log(msg)
+            return seg_knots
+        knots, _gx, _gy, st, _cost = self._solve(
+            win_id, num_events, seg_knots, dev, mc, lm, first_window, None,
+            maps=(pool2(self.gx), pool2(self.gy)), variant=True)
+        stats_out.append(st)
+        self._log(f"coarse presolve: {len(st.iterations)} iters at "
+                  f"{mc.pano_width}x{mc.pano_height}")
+        return _host(knots)
+
+    def _solve_multi_start(self, win_id, num_events, seg_knots, dev, mcfg, lm,
+                           first_window):
+        """A multi-start window: the four (sample_mode x coarse-to-fine)
+        variants of :data:`MULTI_START`, each from the window's start, and
+        the one with the lowest data cost under the reference model
+        (``sample_mode="curr"``, light linearization) kept: a selection
+        without ground truth. Variants run without per-iteration callbacks
+        and mid-window checkpoints (window-boundary checkpoints still
+        cover the run). The window's LMStats are the winner's records with
+        the counts and seconds of every variant, coarse stages included,
+        and ``variants`` lists each one's cost, iterations and seconds;
+        ``lm_mode`` names the winner. Returns what :meth:`_solve` does."""
+        eval_cfg = dataclasses.replace(mcfg, sample_mode="curr")
+        best, every, variants = None, [], []
+        for sm, c2f in MULTI_START:
+            vcfg = dataclasses.replace(mcfg, sample_mode=sm)
+            coarse = []
+            k0 = seg_knots
+            if c2f:
+                k0 = self._coarse_presolve(win_id, num_events, k0, dev, vcfg, lm,
+                                           first_window, coarse)
+            out = self._solve(win_id, num_events, k0, dev, vcfg, lm, first_window,
+                              None, variant=True)
+            kv, gxv, gyv, stv, _ = out
+            lin = model.linearize(kv, gxv, gyv, dev, eval_cfg, need_deriv=False)
+            cost = float(model.data_cost(lin.e, eval_cfg))
+            del lin
+            sel = sm + ("+c2f" if c2f else "")
+            self._log(f"win {win_id} multi-start {sel}: data cost {cost}")
+            every += coarse + [stv]
+            variants.append(dict(
+                variant=sel, data_cost=cost, iterations=len(stv.iterations),
+                coarse_iterations=sum(len(c.iterations) for c in coarse),
+                setup_s=sum(st.setup_s for st in coarse + [stv]),
+                time_total_s=sum(st.time_total_s for st in coarse + [stv])))
+            if best is None or cost < best[0]:
+                best = (cost, sel, out)
+        _cost, sel, (knots, gx, gy, stats, final_cost) = best
+        stats = _merged_stats(stats, every)
+        stats.lm_mode += f"+multistart:{sel}"
+        stats.variants = variants
+        return knots, gx, gy, stats, final_cost
+
     def _solve(self, win_id, num_events, seg_knots, dev, mcfg, lm, first_window,
-               resume_lm):
-        """One window's LM solve on the path the configuration selects.
-        Returns (knots, Gx, Gy, LMStats, final cost)."""
+               resume_lm, maps=None, variant=False):
+        """One window's LM solve on the path the configuration selects, from
+        ``maps`` ((Gx, Gy) numpy; the pipeline's maps by default). A
+        ``variant`` (a multi-start variant or a coarse stage) runs without
+        the per-iteration callback and mid-window checkpoints. Returns
+        (knots, Gx, Gy, LMStats, final cost)."""
         cfg = self.cfg
         fused = cfg.fused_lm if cfg.fused_lm is not None else not self.record_data
         if resume_lm is not None:
@@ -629,8 +817,9 @@ class EmbaPipeline:
         fallback = (fused and cfg.fused_event_cap is not None
                     and num_events > cfg.fused_event_cap)
         fused = fused and not fallback
+        gx0, gy0 = maps if maps is not None else (self.gx, self.gy)
         knots0, gx0, gy0 = convert.state_from_numpy(
-            seg_knots, self.gx, self.gy, self.dtype, self.device)
+            seg_knots, gx0, gy0, self.dtype, self.device)
 
         if fused:
             loop = lm_mod.LoopStats()
@@ -647,16 +836,13 @@ class EmbaPipeline:
             final_cost = float(cost_min)
         else:
             def cb(it, gx, gy, info):
-                if self._iter_log is not None:
-                    self._iter_log.write(
-                        f"win {win_id} iter {it} log10(lambda)="
-                        f"{np.log10(info['lam']):.2f} cost_min={info['cost_min']}\n"
-                    )
+                self._log(f"win {win_id} iter {it} log10(lambda)="
+                          f"{np.log10(info['lam']):.2f} cost_min={info['cost_min']}")
                 self._save_evo(win_id, it, gx, gy)
 
             # Mid-window LM checkpointing (host loops only; the fused loop
             # has no host re-entry).
-            ck_every = cfg.lm_checkpoint_every if self.record_data else 0
+            ck_every = cfg.lm_checkpoint_every if self.record_data and not variant else 0
             ck_cb = None
             if ck_every:
                 ck_path = os.path.join(self.result_dir, "final_results",
@@ -668,7 +854,7 @@ class EmbaPipeline:
             knots, gx_j, gy_j, stats = solver.solve_window(
                 knots0, gx0, gy0, dev, mcfg, lm,
                 damping_factor=cfg.damping_factor, fix_first=first_window,
-                use_cg=cfg.use_cg, callback=cb, checkpoint_cb=ck_cb,
+                use_cg=cfg.use_cg, callback=None if variant else cb, checkpoint_cb=ck_cb,
                 checkpoint_every=ck_every, resume_state=resume_lm,
             )
             last = stats.iterations[-1] if stats.iterations else None

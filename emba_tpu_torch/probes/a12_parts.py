@@ -68,14 +68,15 @@ def synthetic_inputs(rng, n, hw, knots, order, device, pix=None, zero_w=False):
 
 def forming_inputs(w):
     """(inputs, num_pix, knots, order) of ``a12_accumulate`` in the first
-    forming pass of a window of :func:`main_window`: its linearization at
-    the start state and the weights ``form_normal_eq`` gives it."""
+    forming pass of a window of :func:`main_window` (or any window given as
+    ``dev``, ``cfg`` and ``start``): its linearization at the start state
+    and the rows and weights ``form_normal_eq`` gives it; ``num_pix`` is
+    the row space's R_pad (compacted under ``cfg.compact_cap``)."""
     knots, Gx, Gy = w["start"]
     cfg = w["cfg"]
     lin = M.linearize(knots, Gx, Gy, w["dev"], cfg)
-    active, r_pad, _, _ = M._row_space(lin.num_ev_map, cfg)
-    wA = M._meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, lin.e.dtype)
-    args = [lin.pm_pix, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA]
+    rows, wA, r_pad, _, _ = M.forming_inputs(lin, cfg, lin.e.dtype)
+    args = [rows, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA]
     return args, r_pad, knots.shape[0], cfg.spline_order
 
 

@@ -47,26 +47,35 @@ STEPS = (8, 0)  # max_num_iter of the long and the short run
 REPS = 2
 
 
-def main_window(device):
-    """The bench problem on ``device`` in f32: the first 2,000,000 events of
-    a synthetic scene seen by a 128x128 sensor over a smooth random
-    1024x512 brightness map, with the trajectory perturbed by a random walk
-    (seed 1, 0.01 rad a knot). Returns a dict with ``scene``, ``traj0``
-    (the perturbed start), ``n`` (events used), ``cfg``, ``dev`` (the
-    DeviceWindow) and ``start`` (knots, Gx, Gy tensors)."""
+def bench_scene(pano_height=512):
+    """The bench problem's scene (``bench.py``'s at ``BENCH_PANO_H``): a
+    128x128 sensor over a smooth random brightness map of ``pano_height``
+    x 2 ``pano_height`` (seed 7, smooth 4, amplitude 3), 4.8 s, 600
+    render steps, C_th 0.1, and its trajectory perturbed by a random walk
+    (seed 1, 0.01 rad a knot). Returns (scene, perturbed start, sensor)."""
     rng = np.random.default_rng(7)
     sensor = synth.default_sensor(128, 128, f=128 * 0.9)
-    B = synth.smooth_random_map(512, 1024, rng, smooth=4, amp=3.0)
-    scene = synth.generate(rng, sensor, pano_width=1024, pano_height=512,
-                           c_th=0.1, t_end=4.8, dt_knots=0.05, num_steps=600,
-                           motion_amp=0.22, brightness=B)
-    n = min(len(scene.t), 2_000_000)
+    B = synth.smooth_random_map(pano_height, 2 * pano_height, rng, smooth=4, amp=3.0)
+    scene = synth.generate(rng, sensor, pano_width=2 * pano_height,
+                           pano_height=pano_height, c_th=0.1, t_end=4.8, dt_knots=0.05,
+                           num_steps=600, motion_amp=0.22, brightness=B)
     steps = np.random.default_rng(1).normal(size=(scene.traj.num_knots, 3)) * 0.01
     walk = np.cumsum(steps, axis=0)
     walk -= walk[0]
     traj0 = dataclasses.replace(scene.traj, knots=spline._np_exp(walk) @ scene.traj.knots)
-    cfg = M.ModelConfig(c_th=0.1, pano_width=1024, pano_height=512,
-                        thres_valid_pixel=3, alpha=0.5, outlier_dp_norm=3.0)
+    return scene, traj0, sensor
+
+
+def bench_window(scene, traj0, sensor, n, device, compact_cap=None):
+    """The first ``n`` events of a :func:`bench_scene` on ``device`` in f32,
+    with the bench's model (thres_valid_pixel 3, alpha 0.5, outlier cut 3
+    px; ``compact_cap`` if given). Returns a dict with ``scene``,
+    ``traj0``, ``n`` (events used), ``cfg``, ``dev`` (the DeviceWindow)
+    and ``start`` (knots, Gx, Gy tensors)."""
+    n = min(len(scene.t), n)
+    H, W = scene.gx.shape
+    cfg = M.ModelConfig(c_th=0.1, pano_width=W, pano_height=H, thres_valid_pixel=3,
+                        alpha=0.5, outlier_dp_norm=3.0, compact_cap=compact_cap)
     win = build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
                        sensor.width, traj0.locate, 100)
     dev = M.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
@@ -74,6 +83,12 @@ def main_window(device):
     start = tuple(torch.as_tensor(a).to(device=device, dtype=torch.float32)
                   for a in (traj0.knots, scene.gx, scene.gy))
     return dict(scene=scene, traj0=traj0, n=n, cfg=cfg, dev=dev, start=start)
+
+
+def main_window(device):
+    """The bench problem on ``device`` in f32: the first 2,000,000 events of
+    the 1024x512 :func:`bench_scene` (:func:`bench_window`)."""
+    return bench_window(*bench_scene(), 2_000_000, device)
 
 
 def _loops(w):

@@ -4,7 +4,8 @@
 * :func:`solve_window`: the host-driven loop. Same control flow as the
   reference: lambda schedule and convergence from :class:`lm.HostSchedule`,
   relinearization only after an accepted step (the trial evaluation is
-  reused), gauge fixing of the first knot by masking, per-phase timers,
+  reused; with ``light_trial`` a trial evaluates the cost alone and the
+  forming pass recomputes the Jacobians), gauge fixing of the first knot by masking, per-phase timers,
   the Schur or CG solve, and mid-window checkpoint/resume through
   :func:`lm_state_dict`. Each phase ends with a device synchronization
   before the clock is read, so a phase time is the device time of that
@@ -58,11 +59,15 @@ class LMStats:
     num_events: int = 0
     active_px_per_form: list = dataclasses.field(default_factory=list)
     dropped_meas_per_form: list = dataclasses.field(default_factory=list)
-    # active pixels beyond the compaction cap (always 0: no compaction yet)
+    # active pixels beyond the compaction cap, observed after the window
+    # (the pipeline's retune; 0 uncompacted)
     overflow_active_pixels: int = 0
     converged: bool = False
     sync_method: str = "device-synchronize"
     lm_mode: str = ""
+    # a multi-start window: each variant's data cost under the reference
+    # model, iterations (its coarse stage's apart) and seconds (pipeline)
+    variants: list = dataclasses.field(default_factory=list)
 
     @property
     def num_active_pixels(self) -> int:
@@ -97,6 +102,26 @@ def _init_costs(knots, Gx, Gy, dev, cfg):
     """Linearization + costs at a state."""
     lin = M.linearize(knots, Gx, Gy, dev, cfg)
     return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
+
+
+def _init_costs_trial(knots, Gx, Gy, dev, cfg):
+    """The ``light_trial`` objective: the costs and the light
+    linearization, with no (D, N) Jacobians and no prev gather of their
+    rows; :func:`model.form_normal_eq_light` recomputes them after an
+    accepted step only (the reference relinearizes only on accept)."""
+    lin = M.linearize(knots, Gx, Gy, dev, cfg, need_deriv=False)
+    return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
+
+
+def _objective_fn(cfg):
+    return _init_costs_trial if cfg.light_trial else _init_costs
+
+
+def _form(lin, knots, Gx, Gy, dev, cfg, num_knots):
+    """The forming pass of either mode (light: Jacobians recomputed)."""
+    if cfg.light_trial:
+        return M.form_normal_eq_light(lin, knots, Gx, Gy, dev, cfg, num_knots)
+    return M.form_normal_eq(lin, Gx, Gy, cfg, num_knots)
 
 
 def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
@@ -189,8 +214,9 @@ def solve_window(
         sched.it = resume_state["it"]
         sched.cost_decreased = resume_state["cost_decreased"]
 
+    init_costs = _objective_fn(cfg)
     t_loop0 = time.perf_counter()
-    lin, cost_data_t, cost_reg_t = _init_costs(knots, Gx, Gy, dev_win, cfg)
+    lin, cost_data_t, cost_reg_t = init_costs(knots, Gx, Gy, dev_win, cfg)
     cost_data, cost_reg = float(cost_data_t), float(cost_reg_t)
     stats.time_objective_s += time.perf_counter() - t_loop0
     stats.count_objective += 1
@@ -207,7 +233,7 @@ def solve_window(
         # last step was a reject: forming is deterministic in the state
         if sched.cost_decreased or neq is None:
             t0 = time.perf_counter()
-            neq = M.form_normal_eq(lin, Gx, Gy, cfg, num_knots)
+            neq = _form(lin, knots, Gx, Gy, dev_win, cfg, num_knots)
             dropped = int(neq.dropped)
             _sync(device)
             stats.time_form_s += time.perf_counter() - t0
@@ -227,7 +253,7 @@ def solve_window(
         stats.time_solve_s += t1 - t0
         stats.count_solve += 1
 
-        lin_new, cost_data_new_t, cost_reg_new_t = _init_costs(
+        lin_new, cost_data_new_t, cost_reg_new_t = init_costs(
             knots_new, gx_new, gy_new, dev_win, cfg
         )
         cost_data_new = float(cost_data_new_t)
@@ -271,12 +297,14 @@ def _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
     ``use_cg``, each solve writes its CG iterations and relative residual
     into ``cg_rec`` (2,)."""
 
+    init_costs = _objective_fn(cfg)
+
     def objective(knots_, gx_, gy_):
-        lin = M.linearize(knots_, gx_, gy_, dev_win, cfg)
-        return M.data_cost(lin.e, cfg) + M.reg_cost(gx_, gy_, cfg.alpha), lin
+        lin, cost_data, cost_reg = init_costs(knots_, gx_, gy_, dev_win, cfg)
+        return cost_data + cost_reg, lin
 
     def form(lin, knots_, gx_, gy_):
-        return M.form_normal_eq(lin, gx_, gy_, cfg, num_knots)
+        return _form(lin, knots_, gx_, gy_, dev_win, cfg, num_knots)
 
     def solve_update(neq, knots_, gx_, gy_, lam):
         knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(

@@ -15,13 +15,16 @@ from . import spline
 from .camera import EquirectangularCamera
 
 
-def spline_tables(knots, batch_s, batch_u, order: int):
-    """Per-batch pose tables: (R_b (NB, 3, 3), J_b (NB, order, 3, 3))."""
-    return spline.evaluate(knots, batch_s, batch_u, order, True)
+def spline_tables(knots, batch_s, batch_u, order: int, need_jacobian: bool = True):
+    """Per-batch pose tables: (R_b (NB, 3, 3), J_b (NB, order, 3, 3) or
+    None without ``need_jacobian``)."""
+    if need_jacobian:
+        return spline.evaluate(knots, batch_s, batch_u, order, True)
+    return spline.evaluate(knots, batch_s, batch_u, order, False), None
 
 
 def warp_events(knots, batch_s, batch_u, batch_ids, bearings,
-                pano: EquirectangularCamera, order: int):
+                pano: EquirectangularCamera, order: int, need_jacobian: bool = True):
     """Warp all events of a window onto the panorama.
 
     Args:
@@ -32,14 +35,17 @@ def warp_events(knots, batch_s, batch_u, batch_ids, bearings,
       bearings: (3, N) per-event unit bearing vectors.
 
     Returns ``((pmx, pmy), cp_idx, dpm_dcp)`` with pmx, pmy (N,), cp_idx
-    (N,) int32 first involved knot, dpm_dcp (2, 3*order, N).
+    (N,) int32 first involved knot, dpm_dcp (2, 3*order, N), or None
+    without ``need_jacobian``.
     """
-    R_b, J_b = spline_tables(knots, batch_s, batch_u, order)
-    return warp_from_tables(R_b, J_b, batch_s, batch_ids, bearings, pano, order)
+    R_b, J_b = spline_tables(knots, batch_s, batch_u, order, need_jacobian)
+    return warp_from_tables(R_b, J_b, batch_s, batch_ids, bearings, pano, order,
+                            need_jacobian)
 
 
 def warp_from_tables(R_b, J_b, batch_s, batch_ids, bearings,
-                     pano: EquirectangularCamera, order: int):
+                     pano: EquirectangularCamera, order: int,
+                     need_jacobian: bool = True):
     """Per-event warp given precomputed per-batch pose tables."""
     bid = batch_ids.long()
     # component-major tables, one gather each: (9, N) and (order*9, N)
@@ -57,6 +63,8 @@ def warp_from_tables(R_b, J_b, batch_s, batch_ids, bearings,
     pmy = pano.height / 2.0 + torch.asin(y_div_rho) * fy
 
     cp_idx = batch_s[bid]
+    if not need_jacobian:
+        return (pmx, pmy), cp_idx, None
 
     # equirect projection Jacobian rows (z-axis / pole safe)
     xz2 = x * x + z * z

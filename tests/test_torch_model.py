@@ -184,12 +184,38 @@ def test_cg_solve_without_host_reads_gives_the_same_bits(case):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("field", ["compact_cap", "stream_chunk", "light_trial",
-                                   "stream_light"])
+@pytest.mark.parametrize("field", ["stream_chunk", "stream_light"])
 def test_unported_config_fields_raise(field):
-    value = 1024 if field in ("compact_cap", "stream_chunk") else True
+    value = 1024 if field == "stream_chunk" else True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.ModelConfig(**CFG, **{field: value})
+
+
+@pytest.mark.parametrize("field", ["compact_cap", "light_trial"])
+def test_ported_config_fields_form_like_jax(case, field):
+    """``compact_cap`` and ``light_trial`` construct, and the forming pass
+    they select gives JAX's normal equations at the same configuration (a
+    cap above the active count; the light linearization then its forming
+    pass)."""
+    value = 1024 if field == "compact_cap" else True
+    jc, tc = JM.ModelConfig(**CFG, **{field: value}), TM.ModelConfig(**CFG, **{field: value})
+    k = case["num_knots"]
+    jk, jgx, jgy = (jnp.asarray(a) for a in case["state"])
+    tk, tgx, tgy = convert.state_from_numpy(*case["state"], torch.float64, "cpu")
+    light = field == "light_trial"
+    jl = JM.linearize(jk, jgx, jgy, case["jdev"], jc, not light)
+    tl = TM.linearize(tk, tgx, tgy, case["tdev"], tc, need_deriv=not light)
+    if light:
+        jn = JM.form_normal_eq_light(jl, jk, jgx, jgy, case["jdev"], jc, k)
+        tn = TM.form_normal_eq_light(tl, tk, tgx, tgy, case["tdev"], tc, k)
+    else:
+        jn = JM.form_normal_eq(jl, jgx, jgy, jc, k)
+        tn = TM.form_normal_eq(tl, tgx, tgy, tc, k)
+    assert int(tn.dropped) == int(jn.dropped) == 0
+    assert int(tn.active_count) == int(jn.active_count)
+    assert rel_err(tn.A11, jn.A11) <= 1e-10 and rel_err(tn.b1, jn.b1) <= 1e-10
+    r = min(tn.b2_x.shape[0], jn.b2_x.shape[0])
+    assert rel_err(tn.b2_x[:r], np.asarray(jn.b2_x)[:r]) <= 1e-10
 
 
 def test_device_window_from_jax_needs_a_device():

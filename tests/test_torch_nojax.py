@@ -1,8 +1,9 @@
 """The port runs without JAX: a fresh interpreter imports emba_tpu_torch
 and its kernel, probe and application modules, solves a tiny window on the
 CPU through the host loop and the fused loop, runs the CLI's ``synth`` and
-``run --device cpu`` on a tiny scene, and must have loaded neither ``jax``
-nor the JAX package ``emba_tpu``."""
+``run --device cpu`` on a tiny scene and one multi-start row of the
+accuracy suite (``eval_suite``, with ``poses`` and ``viz`` imported), and
+must have loaded neither ``jax`` nor the JAX package ``emba_tpu``."""
 
 import os
 import subprocess
@@ -54,6 +55,10 @@ with tempfile.TemporaryDirectory() as d:
                     "--max-num-iter", "1", "--thres-valid-pixel", "2", "--device", "cpu"])
     assert len(res.window_stats) == 1 and np.isfinite(res.trajectory.knots).all()
     assert os.path.exists(os.path.join(d, "r", "final_results", "runtime.json"))
+from emba_tpu_torch import eval_suite, poses, viz
+row = eval_suite.run_sequence("tiny", 3, 0.25, 2, 3.0, 0.3, sensor=16, pano_height=32,
+                              max_iter=1, multi_start=True, device="cpu")
+assert row["selected_variant"] in ("curr", "mid", "curr+c2f", "mid+c2f")
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "emba_tpu") or m.startswith(("jax.", "jaxlib", "emba_tpu.")))
 print("JAX_MODULES", loaded)

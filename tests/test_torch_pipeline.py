@@ -14,6 +14,7 @@ within the port a resumed run equals the uninterrupted one bit for bit.
 Each JAX run is made once per module.
 """
 
+import dataclasses
 import json
 import os
 
@@ -166,8 +167,10 @@ def test_cli_end_to_end_matches_jax(dataset, tmp_path, capsys):
             port_pipe(dataset, TC.BAConfig(**ONE), device=None)
     with pytest.raises(SystemExit):
         tcli.main(args + ["--device", "gpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcli.main(["suite"])
+    # the suite is ported: like run, it needs the card unless asked for the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(["suite", "--out", str(tmp_path / "suite.json")])
 
 
 def test_cli_reference_layout_and_clamp(dataset, tmp_path, capsys):
@@ -273,13 +276,9 @@ def test_resume_from_jax_checkpoint(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("compact_cap", 4096, "item 10"),
-    ("light_trial", True, "item 10"),
     ("stream_chunk", 1 << 20, "item 11"),
     ("stream_light", True, "item 11"),
     ("super_res_height", 128, "item 11"),
-    ("coarse_to_fine", True, "item 13"),
-    ("multi_start", True, "item 13"),
     ("num_devices", 2, "item 14"),
 ])
 def test_unported_options_raise(dataset, option, value, item):
@@ -289,16 +288,56 @@ def test_unported_options_raise(dataset, option, value, item):
         port_pipe(dataset, cfg).run()
 
 
+@pytest.mark.parametrize("option,value", [
+    ("compact_cap", 4096),
+    ("light_trial", True),
+    ("coarse_to_fine", True),
+    ("multi_start", True),
+])
+def test_ported_options_match_jax(dataset, option, value):
+    """Compaction, light trial, coarse-to-fine and multi-start run, fused,
+    and give JAX's run: the same window stats (iterations, accepts, active pixels and dropped
+    measurements per forming pass, LM mode with the multi-start winner)
+    and knots and maps to relative 1e-8."""
+    cfgs = []
+    for C in (TC, JC):
+        cfg = C.BAConfig(**ONE, fused_lm=True)
+        setattr(cfg, option, value)
+        cfgs.append(cfg)
+    res = port_pipe(dataset, cfgs[0]).run()
+    assert_runs_match(res, jax_pipe(dataset, cfgs[1]).run())
+    if option == "multi_start":
+        st = res.window_stats[0]
+        assert st.lm_mode.startswith("fused+multistart:")
+        assert [v["variant"] for v in st.variants] == [
+            "curr", "curr+c2f", "mid", "mid+c2f"]
+        # the winner has the lowest data cost; the counts cover every run
+        sel = st.lm_mode.split(":")[1]
+        costs = {v["variant"]: v["data_cost"] for v in st.variants}
+        assert costs[sel] == min(costs.values())
+        assert st.count_objective == sum(
+            v["iterations"] + v["coarse_iterations"] for v in st.variants)
+
+
 def test_auto_compaction_and_auto_stream_raise(dataset):
-    """Where the reference would turn on compaction by itself (a 2048x1024
-    panorama) or streaming (a window above the classic cap), the port
-    raises; its decision equals the reference's at the same inputs."""
+    """Where the reference turns on compaction by itself (a 2048x1024
+    panorama), the port does too, with the same cap, and two windows run
+    like the reference's, the cap retuned between them from the device's
+    active-pixel count; where the reference would stream (a window above
+    the classic cap), the port raises; its decision equals the
+    reference's at the same inputs."""
     z = np.zeros((1024, 2048))
-    gx, gy = dataset["maps"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TP.EmbaPipeline(TC.BAConfig(**ONE), load_camera_yaml(
-            str(dataset["dir"] / "calib.yaml")), dataset["events"], *dataset["poses"],
-            init_gx=z, init_gy=z, device="cpu").run()
+    kw = dict(TWO, max_num_iter=2, fused_lm=True, thres_valid_pixel=1,
+              outlier_dp_norm=30.0)
+    runs = [P.EmbaPipeline(C.BAConfig(**kw), load(str(dataset["dir"] / "calib.yaml")),
+                           dataset["events"], *dataset["poses"], init_gx=z.copy(),
+                           init_gy=z.copy(), **dev).run()
+            for P, C, load, dev in ((TP, TC, load_camera_yaml, dict(device="cpu")),
+                                    (JP, JC, j_load_camera_yaml, {}))]
+    assert_runs_match(*runs)
+    for ts, js in zip(runs[0].window_stats, runs[1].window_stats):
+        assert ts.overflow_active_pixels == js.overflow_active_pixels
+        assert ts.active_px_per_form[0] > 0
     assert TP.auto_compact_cap(2048 * 1024, 10_000, 3) == JP.auto_compact_cap(
         2048 * 1024, 10_000, 3) == 4096
     assert TP.auto_compact_cap(1024 * 512, 2_000_000, 3) is None
@@ -315,7 +354,7 @@ def test_auto_compaction_and_auto_stream_raise(dataset):
                                        classic_cap_large=cap)[0].stream_chunk
         if streams is None:
             assert TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
-                                        classic_cap_large=cap) is mcfg
+                                        classic_cap_large=cap) == (mcfg, False)
         else:
             with pytest.raises(NotImplementedError, match="item 11"):
                 TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
@@ -376,3 +415,108 @@ def test_record_maps_and_median_blur(dataset, tmp_path):
     ev = dataset["events"]
     for a, b in zip(TP.systematic_subsample(*ev, 8), JP.systematic_subsample(*ev, 8)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("hw,events,thres", [
+    (1024 * 512, 2_000_000, 3), (4096 * 2048, 2_000_000, 3),
+    (4096 * 2048, 4_000_000, 3), (4096 * 2048, 100_000_000, 3),
+    (4096 * 2048, 1_000, 3), (2048 * 1024, 10_000, 1), (2048 * 1024, 3_000_000, 5),
+])
+def test_auto_compact_cap_matches_jax(hw, events, thres):
+    """Mirror of tests/test_pipeline.py:489: small panoramas never compact,
+    a 4K one gets the next power of two over events / thres, dense
+    coverage gets none, the floor is 4096 rows."""
+    assert TP.auto_compact_cap(hw, events, thres) == JP.auto_compact_cap(hw, events, thres)
+    assert TP.auto_compact_cap(4096 * 2048, 2_000_000, 3) == 1 << 20
+    assert TP.auto_compact_cap(4096 * 2048, 4_000_000, 3) == 1 << 21
+
+
+@pytest.mark.parametrize("cap,observed", [
+    (1 << 20, 300_000), (1 << 20, 1 << 19), (1 << 20, (1 << 19) + 1),
+    (1 << 20, 1 << 18), (1 << 20, 10), (1 << 20, 4096 * 2048), (4096, 0),
+])
+def test_retune_compact_cap_matches_jax(cap, observed):
+    """Mirror of tests/test_pipeline.py:502: the (cap/4, cap/2] band keeps
+    the cap, it grows with 2x headroom past it and shrinks below it, the
+    floor is 4096 rows and the ceiling next_pow2(HW)."""
+    hw = 4096 * 2048
+    assert TP.retune_compact_cap(observed, hw) == JP.retune_compact_cap(
+        cap, observed, hw)
+
+
+@pytest.mark.parametrize("n_events,compact_cap,rows", [
+    (4_000_000, None, 1 << 21), (1_000, 1 << 21, 1 << 21),
+    (6_500_000, None, None), (1_000, 1 << 22, None),
+])
+def test_plan_model_config_row_ceiling(n_events, compact_cap, rows):
+    """A 4096x2048 panorama plans a classic window in a row space up to
+    pipeline.ROWS_LARGE (2^21, the automatic cap of 4M events, or a cap
+    set there); above it (a cap set at 2^22, or the 2^23 rows that 6.5M
+    events leave uncompacted) the plan raises, naming ROADMAP item 11."""
+    mcfg = TC.BAConfig(pano_width=4096, pano_height=2048,
+                       thres_valid_pixel=3).model_config()
+    mcfg = dataclasses.replace(mcfg, compact_cap=compact_cap)
+    args = (mcfg, TC.BAConfig(), np.linspace(0.0, 1.0, n_events), 0.0, 1.0, 0.8, 0.5, 1)
+    if rows is None:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            TP.plan_model_config(*args)
+    else:
+        assert TP.plan_model_config(*args)[0].compact_cap == rows
+
+
+@pytest.mark.parametrize("mode", ["fused", "host"])
+def test_pipeline_coarse_to_fine_matches_jax(dataset, tmp_path, mode):
+    """Mirror of tests/test_pipeline.py:866 on two windows: each window's
+    half-resolution pose pre-solve, on the window's own fused-or-host path
+    (JAX's coarse stage always runs fused), then the full solve: JAX's
+    result, and no worse than the direct run's final cost by 2x. The
+    recording run logs each coarse stage."""
+    kw = dict(TWO, max_num_iter=3, fused_lm=mode == "fused")
+    extra = dict(result_dir=str(tmp_path / "c2f"), record_data=True) if mode == "host" else {}
+    res = port_pipe(dataset, TC.BAConfig(**kw, coarse_to_fine=True), **extra).run()
+    assert_runs_match(res, jax_pipe(dataset, JC.BAConfig(**kw, coarse_to_fine=True)).run())
+    direct = jax_pipe(dataset, JC.BAConfig(**kw)).run()
+    cd = direct.window_stats[-1].iterations[-1]["cost_min"]
+    assert res.window_stats[-1].iterations[-1]["cost_min"] <= 2.0 * cd
+    for st in res.window_stats:
+        assert st.count_objective > len(st.iterations)  # the coarse stage's too
+    if mode == "host":
+        log = (tmp_path / "c2f" / "final_results" / "iterations.txt").read_text()
+        assert log.count("coarse presolve:") == 2 and "at 64x32" in log
+
+
+def test_pipeline_coarse_to_fine_odd_panorama(dataset, capsys):
+    """A panorama of odd size has no 2x2 pooling: the coarse stage is
+    skipped with a log line, and the run equals the direct run."""
+    gx, gy = (m[:63, :126].copy() for m in dataset["maps"])
+    kw = dict(ONE, max_num_iter=2)
+
+    def run(**over):
+        return TP.EmbaPipeline(TC.BAConfig(**kw, **over), load_camera_yaml(
+            str(dataset["dir"] / "calib.yaml")), dataset["events"], *dataset["poses"],
+            init_gx=gx, init_gy=gy, device="cpu").run()
+
+    res = run(coarse_to_fine=True)
+    assert "coarse presolve skipped: odd panorama 126x63" in capsys.readouterr().err
+    np.testing.assert_array_equal(res.trajectory.knots, run().trajectory.knots)
+
+
+def test_pipeline_multi_start_matches_jax(dataset, tmp_path):
+    """Mirror of tests/test_pipeline.py:896 on two windows, recording (host
+    loops): every window solved with the four variants, the winner by the
+    data cost under the reference model, as in JAX's; lm_mode records it
+    and iterations.txt logs each variant's cost."""
+    kw = dict(TWO, max_num_iter=3, multi_start=True)
+    res = port_pipe(dataset, TC.BAConfig(**kw), result_dir=str(tmp_path / "t"),
+                    record_data=True).run()
+    jres = jax_pipe(dataset, JC.BAConfig(**kw), result_dir=str(tmp_path / "j"),
+                    record_data=True).run()
+    assert_runs_match(res, jres)
+    for st in res.window_stats:
+        sel = st.lm_mode.split("+multistart:")[1]
+        assert st.lm_mode.startswith("host+multistart:")
+        assert sel in ("curr", "mid", "curr+c2f", "mid+c2f")
+    log = (tmp_path / "t" / "final_results" / "iterations.txt").read_text()
+    assert log.count("multi-start") == 8
+    rt = json.loads((tmp_path / "t" / "final_results" / "runtime.json").read_text())
+    assert rt["lm_mode"] == [st.lm_mode for st in jres.window_stats]

@@ -98,11 +98,10 @@ def test_solve_window_matches(scenes):
 
 
 def test_unported_solver_options_raise(scenes):
-    """The solver options still to port raise (the light trial step, the
-    streamed tier's re-form at the top of each iteration); ``use_cg`` and
-    ``resume_state`` run, and a resume from the start equals a fresh run."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.ModelConfig(**CFG, light_trial=True)
+    """The solver option still to port raises (the streamed tier's re-form
+    at the top of each iteration); ``light_trial`` (ported)
+    gives the classic loop's bits, ``use_cg`` and ``resume_state`` run,
+    and a resume from the start equals a fresh run."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.lm_while(None, None, None, objective=None, form=None, solve_update=None,
                     tol_fun=1e-3, max_num_iter=1, num_times_tol_fun_sat=2,
@@ -122,6 +121,10 @@ def test_unported_solver_options_raise(scenes):
                for r in st.iterations)
 
     fresh = TS.solve_window(*start, dev, cfg, lmc)
+    light = TS.solve_window(*start, dev, TM.ModelConfig(**CFG, light_trial=True), lmc)
+    for a, b in zip(light[:3], fresh[:3]):
+        assert torch.equal(a, b)
+    assert light[3].count_form == fresh[3].count_form
     sched = lm.HostSchedule(tol_fun=lmc.tol_fun, max_num_iter=lmc.max_num_iter,
                             num_times_tol_fun_sat=lmc.num_times_tol_fun_sat)
     sched.start(fresh[3].iterations[0]["cost_min"])
