@@ -79,7 +79,27 @@ Phases, each reporting on its own lines:
     undersized cap of 32,768 (kernel and plain version agree, with equal
     ``dropped``); (e) light-trial LM on that window, fused and host,
     against the classic runs (same steps, final cost within 1e-5), its loop
-    seconds beside theirs.
+    seconds beside theirs;
+13. streamed forming (``stream_chunk``), map-only and the super-resolution
+    map, each path with the A12 launches counted from 0 and gated against
+    forming passes times chunks: (a) the bench window padded to four
+    chunks of 2^19, the FULL and the LIGHT tier each fused and through the
+    host loop (the classic host loop's steps, final cost within 1e-4 of
+    classic, fused within 1e-5 of host, the cost falls), the A12 kernel
+    against its plain version over a whole streamed forming pass (every
+    NormalEq field) and as a chain of calls through ``carry`` (timed,
+    beside its bound, which counts the rows each chained call touches),
+    and the map-only step in f32 on the card against f64 on the CPU; (b)
+    the suite row rendered over 6.4 s with every event kept (35-45M events
+    in its whole-span window, above ``pipeline.CLASSIC_CAP_SMALL_ROWS``):
+    ``cli run`` fused with no streaming flag, the plan streaming it in the
+    FULL tier at 2^21 by itself, the cost falling, the A12 kernel against
+    its plain version on its first streamed forming pass, its events/s and
+    peak bytes; (c) phase 12c's render, its first 12M events at a cap of
+    2^21 rows, streamed by the plan, fused and host alike; (d) ``cli run
+    --super-res-height 2048`` on phase 11's scene: the four map files and
+    super_res.json, the data cost falls, a second map-only step is a fixed
+    point, a second call gives the same map.
 
 Each kernel line gives its time beside its bound, the least time the card
 could take (``a12_bound``: bytes at 3.35 TB/s or f32 operations at 67
@@ -141,20 +161,35 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def a12_bound(n, num_pix, dim_pose, order, carry=False):
-    """Bound of one a12_accumulate call: A12, px5 and a11b written once (and
-    read once under ``carry``), 3 int32 + 2D + 4 f32 read per measurement;
-    D multiply-adds per A12 plane and half, 5 px5 terms and the (2D+1)^2 / 2
-    cells of A11/b1 a measurement."""
+def a12_bound(n, num_pix, dim_pose, order, carry=False, rows=None):
+    """Bound of one a12_accumulate call: 3 int32 + 2D + 4 f32 read per
+    measurement; D multiply-adds per A12 plane and half, 5 px5 terms and the
+    (2D+1)^2 / 2 cells of A11/b1 a measurement. Without ``carry`` the call
+    writes all of A12, px5 and a11b once. Under ``carry`` it reads and
+    writes a11b and only the rows its measurements touch (the kernel leaves
+    the other rows alone): ``rows``, the rows with a measurement of weight
+    > 0 (all R_pad rows when not given), so a chunk of a streamed pass is
+    bounded by its own rows, not by all of A12."""
     from emba_tpu_torch.kernels.a12_accum import padded_dims
 
     d = 3 * order
     r_pad, dp_pad = padded_dims(num_pix, dim_pose)
-    out = 4 * (r_pad * 2 * dp_pad + r_pad * 8 + (dp_pad + 8) * dp_pad)
-    out *= 2 if carry else 1
+    a11b = 4 * (dp_pad + 8) * dp_pad
+    if carry:
+        out = 2 * (4 * (r_pad if rows is None else rows) * (2 * dp_pad + 8) + a11b)
+    else:
+        out = 4 * r_pad * (2 * dp_pad + 8) + a11b
     inputs = 4 * n * (3 + 2 * d + 4)
     flops = n * (2 * 4 * d + 2 * 5 + (2 * d + 1) * (2 * d + 2))
     return _bound(out + inputs, flops)
+
+
+def touched_rows(rows, wA):
+    """Rows with a measurement of weight > 0: what a call under ``carry``
+    reads and writes."""
+    import torch
+
+    return int(torch.unique(rows[wA > 0]).numel())
 
 
 def _require(cond, msg):
@@ -246,7 +281,8 @@ def check_kernel_case(name, args, num_pix, knots, order, carry_args=None,
     p_ms = cuda_time_ms(plain)
     torch.cuda.empty_cache()
     b_ms, b_by = a12_bound(args[0].shape[0], num_pix, dim_pose, order,
-                           carry=carry_args is not None)
+                           carry=carry_args is not None,
+                           rows=None if carry_args is None else touched_rows(args[0], args[8]))
     if carry_args is not None:  # the chain's first call
         b_ms += a12_bound(carry_args[0].shape[0], num_pix, dim_pose, order)[0]
     print(f"kernel {name}: bitwise-repeatable; " + "; ".join(parts)
@@ -534,7 +570,7 @@ def phase_main(device):
     print(f"main: a12_accumulate launches {launches} == count_form {st.count_form}",
           flush=True)
     return dict(dev=dev, cfg=cfg, start=(knots0, Gx0, Gy0), lm=lm, n=n,
-                host=(knots, Gx, Gy, st))
+                host=(knots, Gx, Gy, st), win=w["win"], sensor=w["sensor"])
 
 
 def phase_window_kernel(ctx, name="real window", graphed=True, exact=True):
@@ -712,21 +748,23 @@ def phase_cg(ctx):
     _require(launches == st.form_passes, "cg: kernel launches != forming passes")
 
 
-def _cli_run(name, argv):
+def _cli_run(name, argv, chunks=1):
     """One ``cli.main(["run", ...])`` on the card
     (``probes.suite_run.measured_run``: graph and allocator caches emptied,
     peaks reset, A12 launches counted from 0). Prints the run's windows,
     iterations, events/s, wall, per-window set-up, peak memory and launches
-    against forming passes; gates launches, costs and finiteness. Returns
-    (RunResult, summary dict)."""
+    against forming passes (times ``chunks``, a streamed window's chunks a
+    pass; None: the caller gates the launches); gates launches, costs and
+    finiteness. Returns (RunResult, summary dict)."""
     from emba_tpu_torch.probes.suite_run import measured_run
 
     res, summary = measured_run(argv)
     print(f"pipeline {name}: " + json.dumps(summary), flush=True)
     launches, forms = summary["a12_launches"], summary["forming_passes"]
     stats = res.window_stats
-    _require(launches == forms,
-             f"pipeline {name}: {launches} A12 launches != {forms} forming passes")
+    _require(chunks is None or launches == forms * chunks,
+             f"pipeline {name}: {launches} A12 launches != {forms} forming passes x "
+             f"{chunks}")
     for st in stats:
         costs = [r["cost_min"] for r in st.iterations] + [r["cost_new"]
                                                           for r in st.iterations]
@@ -946,23 +984,30 @@ def _plain_forming():
 
 
 def check_forming(name, ctx):
-    """``model.form_normal_eq`` at a window's start state through the A12
-    kernel and through its plain version on the same linearization: every
+    """The window's first forming pass at its start state through the A12
+    kernel and through its plain version on the same inputs: every
     NormalEq field within KERNEL_REL_TOL of the plain one, the row space,
-    the active count and ``dropped`` equal. Returns (max abs err, dropped,
-    active count, R_pad)."""
+    the active count and ``dropped`` equal. A streamed window
+    (``cfg.stream_chunk``) forms with ``model.form_normal_eq_streamed``,
+    every chunk's call chained through ``carry`` in both. Returns (max abs
+    err, dropped, active count, R_pad)."""
     import torch
 
-    from emba_tpu_torch import model as M
+    from emba_tpu_torch import solver
 
     knots, Gx, Gy = ctx["start"]
-    cfg = ctx["cfg"]
-    lin = M.linearize(knots, Gx, Gy, ctx["dev"], cfg)
-    got = M.form_normal_eq(lin, Gx, Gy, cfg, knots.shape[0])
+    cfg, dev = ctx["cfg"], ctx["dev"]
+    prev = solver._prev(dev, cfg)
+    aux = solver._objective_fn(cfg, prev)(knots, Gx, Gy, dev, cfg)[0]
+
+    def form():
+        return solver._form(aux, knots, Gx, Gy, dev, cfg, knots.shape[0], prev)
+
+    got = form()
     with _plain_forming():
-        want = M.form_normal_eq(lin, Gx, Gy, cfg, knots.shape[0])
+        want = form()
     torch.cuda.synchronize()
-    del lin
+    del aux, prev
     max_abs, parts = 0.0, []
     for f in ("A11", "b1", "a22_xx", "a22_xy", "a22_yy", "b2_x", "b2_y", "A12"):
         g, w = getattr(got, f), getattr(want, f)
@@ -1003,11 +1048,12 @@ def _final_cost(st):
     return min([r["cost_min"] for r in st.iterations] + [r["cost_new"] for r in st.iterations])
 
 
-def _loops_agree(name, fused_out, loop, launches_fused, host, launches_host):
+def _loops_agree(name, fused_out, loop, launches_fused, host, launches_host, chunks=1):
     """Gates of a window run fused and through the host loop: the same
     iterations and accepts, final costs within FUSED_COST_REL_TOL, the cost
-    falls, no NaN, no measurement dropped, A12 launches = forming passes.
-    Returns the fused final cost."""
+    falls, no NaN, no measurement dropped, A12 launches = forming passes
+    times ``chunks`` (a streamed window's chunks a pass). Returns the fused
+    final cost."""
     from emba_tpu_torch import lm
 
     k, gx, gy, cost, it, conv, trace = fused_out
@@ -1024,24 +1070,26 @@ def _loops_agree(name, fused_out, loop, launches_fused, host, launches_host):
     print(f"{name}: fused {int(it)} iterations {acc_f}, host {len(st.iterations)} "
           f"{acc_h}; cost {cost0:.6g} -> fused {float(cost):.6g}, host {host_cost:.6g} "
           f"(rel {rel:.2e}); A12 launches fused {launches_fused} = {loop.form_passes} "
-          f"forming passes, host {launches_host} = {st.count_form}; dropped "
-          f"{max(dropped)}", flush=True)
+          f"forming passes x {chunks}, host {launches_host} = {st.count_form} x "
+          f"{chunks}; dropped {max(dropped)}", flush=True)
     _require(int(it) == len(st.iterations) and acc_f == acc_h,
              f"{name}: the fused and the host loop took other steps")
     _require(rel <= FUSED_COST_REL_TOL, f"{name}: final cost rel {rel:.2e}")
     _require(float(cost) < cost0, f"{name}: the cost did not fall")
     _require(max(dropped) == 0, f"{name}: measurements dropped past the cap")
-    _require(launches_fused == loop.form_passes and launches_host == st.count_form,
-             f"{name}: A12 launches != forming passes")
+    _require(launches_fused == loop.form_passes * chunks
+             and launches_host == st.count_form * chunks,
+             f"{name}: A12 launches != forming passes x {chunks}")
     return float(cost)
 
 
-def _fused_and_host(name, ctx, iters=MAIN_ITERS):
+def _fused_and_host(name, ctx, iters=MAIN_ITERS, chunks=1):
     """A window run fused (from an empty graph cache) and then through the
     host loop, each with the A12 launches counted from 0 and the device's
-    peaks reset; gated by :func:`_loops_agree`. Returns {"fused", "host"}:
-    each (loop seconds, set-up seconds, peak allocated, peak reserved,
-    A12 launches)."""
+    peaks reset; gated by :func:`_loops_agree` (``chunks``: the forming
+    pass's A12 calls). Returns {"fused", "host"}: each (loop seconds,
+    set-up seconds, peak allocated, peak reserved, A12 launches, final
+    cost), and the host loop's LMStats under "host_stats"."""
     import torch
 
     from emba_tpu_torch import kernels, lm, solver
@@ -1063,8 +1111,9 @@ def _fused_and_host(name, ctx, iters=MAIN_ITERS):
                                fix_first=True)
     torch.cuda.synchronize()
     launches_h = kernels.launch_counts()["a12_accum"]
-    out["host"] = (host[3].time_total_s, 0.0, *peaks(), launches_h)
-    _loops_agree(name, fused, loop, launches_f, host, launches_h)
+    out["host"] = (host[3].time_total_s, 0.0, *peaks(), launches_h, _final_cost(host[3]))
+    out["fused"] += (_loops_agree(name, fused, loop, launches_f, host, launches_h, chunks),)
+    out["host_stats"] = host[3]
     del fused, host
     solver._GRAPHED.clear()
     torch.cuda.empty_cache()
@@ -1180,7 +1229,8 @@ def phase_suite_row():
 def phase_4k(device):
     """12c: the 4096x2048 bench problem, two compacted windows. Returns
     (A12 launches {window: (fused, host)}, max abs err, the 4M window's
-    kernel case, the cap from its bytes an event)."""
+    kernel case, the cap from its bytes an event, (scene, start, sensor)
+    for phase 13c)."""
     from emba_tpu_torch.pipeline import CLASSIC_CAP_LARGE_ROWS, auto_compact_cap
     from emba_tpu_torch.probes.profile_fused import bench_scene, bench_window
     from emba_tpu_torch.probes.suite_run import CAP_MEMORY_SHARE, CARD_BYTES, cap_from
@@ -1204,7 +1254,8 @@ def phase_4k(device):
         c = phase_window_kernel(ctx, name=f"{name} first forming pass", graphed=True,
                                 exact=False)
         runs = _fused_and_host(name, ctx)
-        for mode, (loop_s, setup_s, pa, pr, nl) in runs.items():
+        for mode in ("fused", "host"):
+            loop_s, setup_s, pa, pr, nl, _c = runs[mode]
             print(f"{name} {mode}: loop {loop_s:.4f} s, set-up {setup_s:.4f} s; peak "
                   f"{pa / 1e9:.3f} GB allocated, {pr / 1e9:.3f} GB reserved: {pa / n:.1f} / "
                   f"{pr / n:.1f} bytes an event; A12 launches {nl}", flush=True)
@@ -1218,7 +1269,7 @@ def phase_4k(device):
           f"{cap_from(per_ev[big])} events ({CAP_MEMORY_SHARE} x {CARD_BYTES:.0f} bytes / "
           f"{per_ev[big]:.1f} bytes an event reserved, the larger of fused and host); "
           f"pipeline.CLASSIC_CAP_LARGE_ROWS {CLASSIC_CAP_LARGE_ROWS}", flush=True)
-    return launches, err, case, cap_from(per_ev[big])
+    return launches, err, case, cap_from(per_ev[big]), (scene, traj0, sensor)
 
 
 def _f64_window(ctx):
@@ -1354,6 +1405,387 @@ def phase_light(ctx):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: streamed forming, map-only and the super-resolution map.
+# ---------------------------------------------------------------------------
+
+# 13a: the bench window in four chunks (2,000,000 events padded to 2^21)
+STREAM_CHUNK_13A = 1 << 19
+# A streamed window against the classic one in f32: the chunked forming
+# pass sums in another order, which moves the final cost after 9 steps by
+# f32 rounding (2.5-5.7e-5 for any change of summation order, 12d above).
+STREAM_F32_REL_TOL = 1e-4
+# The map-only map in f32 on the card against f64 on the CPU, as a fraction
+# of the f64 map's largest magnitude, on the pixels whose inlier counts
+# agree: a pixel whose measurement set differs (an event within f32
+# rounding of a pixel edge or of the outlier cut) is a different
+# per-pixel problem, so those pixels are counted and printed, not held to it.
+MAP_ONLY_F32_REL_TOL = 1e-4
+# 13b: the suite row rendered over 6.4 s, every event kept
+DURATION_13B = 6.4
+EVENTS_13B = (35_000_000, 45_000_000)
+ITERS_13B = 8
+# 13c: phase 12c's 4096x2048 render, its first 12M events at a cap of 2^21
+EVENTS_13C, CAP_13C = 12_000_000, 1 << 21
+# 13d: the super-resolution map of phase 11's scene
+SUPER_RES_HEIGHT, ITERS_13D = 2048, 8
+# One map-only step is the exact minimizer of the quadratic cost: a second
+# step moves the data cost by f32 rounding only.
+MAP_ONLY_EXACT_REL_TOL = 1e-5
+
+
+def check_chain(name, chunks, num_pix, knots, order):
+    """A streamed forming pass's A12 calls (``chunks``: each call's nine
+    inputs) chained through ``carry`` by the kernel, twice (the same bits),
+    against the plain version chained on the same GPU tensors. Times both
+    chains; the bound is the first call's (all rows written) plus each
+    later call's under ``carry`` (its touched rows read and written).
+    Returns (max abs err, kernel ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from emba_tpu_torch.device import cuda_time_ms
+    from emba_tpu_torch.kernels import a12_accum as K
+
+    dim_pose = 3 * knots
+
+    def chain(fn):
+        out = None
+        for args in chunks:
+            out = fn(*args, num_pix, dim_pose, order, carry=out)
+        return out
+
+    got, again = chain(K.a12_accumulate), chain(K.a12_accumulate)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        _require(torch.equal(x, y), f"{name}: repeated kernel chains differ")
+    want = chain(K.a12_accumulate_plain)
+    torch.cuda.synchronize()
+    g, w = _outputs(got, num_pix, dim_pose), _outputs(want, num_pix, dim_pose)
+    max_abs, parts = 0.0, []
+    for key in g:
+        rel = _rel(g[key], w[key])
+        _require(torch.isfinite(g[key]).all().item(), f"{name}: {key} not finite")
+        _require(rel <= KERNEL_REL_TOL, f"{name}: {key} rel err {rel:.3e} > {KERNEL_REL_TOL:.0e}")
+        max_abs = max(max_abs, float(torch.max(torch.abs(g[key] - w[key]))))
+        parts.append(f"{key} rel {rel:.3e}")
+    del got, again, want
+    k_ms = cuda_time_ms(lambda: chain(K.a12_accumulate))
+    p_ms = cuda_time_ms(lambda: chain(K.a12_accumulate_plain), reps=3)
+    torch.cuda.empty_cache()
+    b_ms, b_by = a12_bound(chunks[0][0].shape[0], num_pix, dim_pose, order)
+    rows = [touched_rows(a[0], a[8]) for a in chunks]
+    for args, r in zip(chunks[1:], rows[1:]):
+        b_ms += a12_bound(args[0].shape[0], num_pix, dim_pose, order, carry=True, rows=r)[0]
+    print(f"kernel {name}: {len(chunks)} calls chained through carry, bitwise-repeatable; "
+          + "; ".join(parts) + f"; touched rows a call {rows} of {num_pix}; chain "
+          f"{k_ms:.3f} ms eager, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+          f"share of bound {b_ms / k_ms:.3f}", flush=True)
+    return max_abs, k_ms, p_ms, b_ms, b_by
+
+
+def _window_f64_cpu(ctx, pad_multiple):
+    """``ctx``'s window on the CPU in f64, padded to ``pad_multiple``."""
+    import torch
+
+    from emba_tpu_torch import model as M
+
+    sensor = ctx["sensor"]
+    return M.DeviceWindow.from_window(ctx["win"], sensor.bearing_lut(), sensor.width,
+                                      torch.float64, "cpu", pad_multiple=pad_multiple)
+
+
+def phase_map_only_1k(ctx, dev, cfg):
+    """13a's map-only step: the map of the host loop's refined trajectory
+    from zero maps, f32 on the card (twice) against the port's f64 map-only
+    on the CPU. Returns the card's seconds."""
+    import torch
+
+    from emba_tpu_torch import model as M
+
+    knots = ctx["host"][0]
+    z = torch.zeros_like(ctx["start"][1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gx, gy, costs = M.solve_map_only(knots, z, z, dev, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gx2, gy2, _costs2 = M.solve_map_only(knots, z, z, dev, cfg)
+    dev64 = _window_f64_cpu(ctx, cfg.stream_chunk)
+    k64, z64 = knots.double().cpu(), torch.zeros(z.shape, dtype=torch.float64)
+    gx64, gy64, costs64 = M.solve_map_only(k64, z64, z64, dev64, cfg)
+    nem = M.cost_and_activity_streamed(knots, gx, gy, dev, cfg)[1].cpu()
+    nem64 = M.cost_and_activity_streamed(k64, gx64, gy64, dev64, cfg)[1]
+    same = (nem == nem64).reshape(z.shape)
+    mag = max(float(gx64.abs().max()), float(gy64.abs().max()))
+    err_same = max(float((a.double().cpu() - b)[same].abs().max())
+                   for a, b in ((gx, gx64), (gy, gy64))) / mag
+    err_all = max(float((a.double().cpu() - b).abs().max())
+                  for a, b in ((gx, gx64), (gy, gy64))) / mag
+    rep = max(_rel(gx2, gx), _rel(gy2, gy))
+    bits = torch.equal(gx2, gx) and torch.equal(gy2, gy)
+    print(f"13a map-only: {cfg.pano_width}x{cfg.pano_height} from the refined trajectory, "
+          f"data cost {costs[0]:.6g} -> {costs[1]:.6g} (f64 CPU {costs64[0]:.6g} -> "
+          f"{costs64[1]:.6g}); f32 card vs f64 CPU: rel {err_same:.3e} on the "
+          f"{int(same.sum())} pixels with equal inlier counts (tolerance "
+          f"{MAP_ONLY_F32_REL_TOL:.0e}), {err_all:.3e} over all, {int((~same).sum())} "
+          f"pixels' counts differ; two card runs: bit-equal {bits}, rel {rep:.3e} "
+          f"(tolerance {M.MAP_ONLY_REPEAT_REL_TOL:.0e}); {secs:.4f} s on the card",
+          flush=True)
+    _require(costs[1] < costs[0], "13a map-only: the data cost did not fall")
+    _require(err_same <= MAP_ONLY_F32_REL_TOL,
+             f"13a map-only: f32 vs f64 rel {err_same:.3e} > {MAP_ONLY_F32_REL_TOL:.0e}")
+    _require(rep <= M.MAP_ONLY_REPEAT_REL_TOL, f"13a map-only: two runs differ by {rep:.3e}")
+    return secs
+
+
+def phase_stream_1k(ctx, classic_fused_loop_s):
+    """13a: the bench window padded to four chunks, the FULL and the LIGHT
+    tier each fused and through the host loop, against the classic host
+    loop; the A12 kernel chained through ``carry`` over a whole streamed
+    forming pass against its plain version; the map-only step. Returns
+    ({run: A12 launches}, the chain's numbers, {run: loop seconds}, max abs
+    err)."""
+    import torch
+
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch import solver
+    from emba_tpu_torch.probes.a12_parts import streamed_forming_inputs
+
+    sensor = ctx["sensor"]
+    dev = M.DeviceWindow.from_window(ctx["win"], sensor.bearing_lut(), sensor.width,
+                                     torch.float32, ctx["start"][0].device,
+                                     pad_multiple=STREAM_CHUNK_13A)
+    n_chunks = len(M.stream_bounds(dev.pol_signed.shape[0], STREAM_CHUNK_13A))
+    _require(n_chunks == 4, f"13a: {n_chunks} chunks")
+    ref = ctx["host"][3]
+    c_ref = _final_cost(ref)
+    # the classic window in f64 (plain forming pass): where each f32 run's
+    # rounding has taken its cost, printed beside the gates
+    w64 = _f64_window(ctx)
+    with _plain_forming():
+        c64 = _final_cost(solver.solve_window(*w64["start"], w64["dev"], ctx["cfg"],
+                                              ctx["lm"], fix_first=True)[3])
+    del w64
+    print(f"13a: classic f32 final cost {c_ref:.6f}, f64 {c64:.9f} (rel "
+          f"{abs(c_ref - c64) / c64:.2e})", flush=True)
+    launches, loops, err = {}, {"classic_host": ref.time_total_s,
+                                "classic_fused": classic_fused_loop_s}, 0.0
+    for tier in ("full", "light"):
+        cfg = dataclasses.replace(ctx["cfg"], stream_chunk=STREAM_CHUNK_13A,
+                                  stream_light=tier == "light")
+        sctx = dict(ctx, dev=dev, cfg=cfg)
+        name = f"13a {tier} tier, {n_chunks} chunks"
+        runs = _fused_and_host(name, sctx, chunks=n_chunks)
+        st = runs["host_stats"]
+        rel = [abs(runs[m][5] - c_ref) / abs(c_ref) for m in ("fused", "host")]
+        rel64 = [abs(runs[m][5] - c64) / c64 for m in ("fused", "host")]
+        print(f"{name}: host accepts {_accepts(st)} vs classic {_accepts(ref)}; final cost "
+              f"vs classic: fused rel {rel[0]:.2e}, host {rel[1]:.2e} (vs f64: "
+              f"{rel64[0]:.2e}, {rel64[1]:.2e}); loop fused "
+              f"{runs['fused'][0]:.4f} s (set-up {runs['fused'][1]:.4f}), host "
+              f"{runs['host'][0]:.4f} s vs classic fused {classic_fused_loop_s:.4f} s, host "
+              f"{ref.time_total_s:.4f} s; peak reserved fused "
+              f"{runs['fused'][3] / 1e9:.3f} GB, host {runs['host'][3] / 1e9:.3f} GB",
+              flush=True)
+        _require(_accepts(st) == _accepts(ref),
+                 f"{name}: other steps than the classic host loop")
+        _require(max(rel) <= STREAM_F32_REL_TOL,
+                 f"{name}: final cost rel {max(rel):.2e} > {STREAM_F32_REL_TOL:.0e}")
+        launches[tier] = (runs["fused"][4], runs["host"][4])
+        loops[f"{tier}_fused"], loops[f"{tier}_host"] = runs["fused"][0], runs["host"][0]
+        err = max(err, check_forming(f"{name} first forming pass", sctx)[0])
+        if tier == "full":
+            chunks, num_pix, knots, order = streamed_forming_inputs(sctx)
+            chain = check_chain(f"13a streamed pass N={dev.pol_signed.shape[0]}", chunks,
+                                num_pix, knots, order)
+            del chunks
+            torch.cuda.empty_cache()
+            err = max(err, chain[0])
+            loops["map_only_s"] = phase_map_only_1k(ctx, dev, cfg)
+    return launches, chain, loops, err
+
+
+def phase_stream_above_cap(d):
+    """13b: the suite row rendered over 6.4 s with every event kept, one
+    whole-span window above the classic cap, ``cli run`` fused with no
+    streaming flag: the plan streams it in the FULL tier by itself. The A12
+    kernel against its plain version on the first streamed forming pass.
+    Returns (A12 launches, the run's summary, max abs err)."""
+    import torch
+
+    from emba_tpu_torch import convert
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch.pipeline import AUTO_STREAM_CHUNK, CLASSIC_CAP_SMALL_ROWS
+    from emba_tpu_torch.probes.suite_run import suite_argv, write_suite_scene
+
+    t0 = time.perf_counter()
+    n_scene, _n_kept, p = write_suite_scene(d, max_events=None, duration=DURATION_13B)
+    scene_s = time.perf_counter() - t0
+    print(f"13b: the suite row over {DURATION_13B} s: {n_scene} events rendered and "
+          f"written in {scene_s:.1f} s", flush=True)
+    with _window_inputs({0}) as windows:
+        res, s = _cli_run("13b (above the classic cap, fused)",
+                          suite_argv(p, ITERS_13B, DURATION_13B),
+                          chunks=None)
+    mcfg = res.model_config
+    n = s["events"][0]
+    solve = windows.pop(0)[0]
+    n_pad = solve["dev"].pol_signed.shape[0]
+    chunks = len(M.stream_bounds(n_pad, mcfg.stream_chunk or n_pad))
+    st = res.window_stats[0]
+    print(f"13b: plan: stream_chunk {mcfg.stream_chunk}, stream_light {mcfg.stream_light} "
+          f"(classic cap {CLASSIC_CAP_SMALL_ROWS}); window {n} events ({n_pad} padded), "
+          f"{chunks} chunks, {res.trajectory.num_knots} knots, {len(st.iterations)} "
+          f"steps {_accepts(st)}; loop {s['loop_s'][0]:.4f} s, set-up {s['setup_s'][0]:.4f} "
+          f"s, events/s {s['events_per_s'][0]:.4g}; peak {s['peak_allocated_bytes'] / 1e9:.3f}"
+          f" GB allocated, {s['peak_reserved_bytes'] / 1e9:.3f} GB reserved; A12 launches "
+          f"{s['a12_launches']} = {s['forming_passes']} forming passes x {chunks}",
+          flush=True)
+    _require(EVENTS_13B[0] <= n <= EVENTS_13B[1] and n > CLASSIC_CAP_SMALL_ROWS,
+             f"13b: {n} events, not in {EVENTS_13B} above the cap")
+    _require(mcfg.stream_chunk == AUTO_STREAM_CHUNK and not mcfg.stream_light,
+             f"13b: the plan chose stream_chunk {mcfg.stream_chunk}, light "
+             f"{mcfg.stream_light}")
+    _require(s["a12_launches"] == s["forming_passes"] * chunks,
+             f"13b: {s['a12_launches']} A12 launches != {s['forming_passes']} x {chunks}")
+    ctx = dict(solve, start=convert.state_from_numpy(*solve["state"]))
+    e = check_forming(f"13b first streamed forming pass ({chunks} chunks)", ctx)[0]
+    del ctx, solve, res
+    torch.cuda.empty_cache()
+    return s["a12_launches"], s, e
+
+
+def phase_stream_4k(device, scene4k):
+    """13c: phase 12c's 4096x2048 render, its first 12M events at a cap of
+    2^21 rows: the plan streams (above CLASSIC_CAP_LARGE_ROWS), fused and
+    host take the same steps, the A12 kernel against its plain version on
+    the first streamed forming pass. Returns (A12 launches (fused, host),
+    max abs err, {mode: peak reserved bytes})."""
+    import torch
+
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch.config import BAConfig
+    from emba_tpu_torch.pipeline import AUTO_STREAM_CHUNK, CLASSIC_CAP_LARGE_ROWS, plan_model_config
+    from emba_tpu_torch.probes.profile_fused import bench_window
+
+    scene, traj0, sensor = scene4k
+    n = EVENTS_13C
+    _require(len(scene.t) >= n, f"13c: the render holds {len(scene.t)} events")
+    t = scene.t[:n]
+    span = float(t[-1] - t[0])
+    H, W = scene.gx.shape
+    mcfg = M.ModelConfig(c_th=0.1, pano_width=W, pano_height=H, thres_valid_pixel=3,
+                         alpha=0.5, outlier_dp_norm=3.0, compact_cap=CAP_13C)
+    mcfg, auto = plan_model_config(mcfg, BAConfig(), t, float(t[0]), float(t[-1]), span,
+                                   span, 1)
+    print(f"13c: {n} events at {W}x{H}, cap {CAP_13C}: plan stream_chunk "
+          f"{mcfg.stream_chunk}, stream_light {mcfg.stream_light} (classic cap "
+          f"{CLASSIC_CAP_LARGE_ROWS} above 2^20 rows)", flush=True)
+    _require(mcfg.stream_chunk == AUTO_STREAM_CHUNK and not mcfg.stream_light
+             and not auto, "13c: the plan did not stream in the FULL tier")
+    ctx = bench_window(scene, traj0, sensor, n, device, compact_cap=CAP_13C,
+                       pad_multiple=mcfg.stream_chunk)
+    ctx["cfg"] = mcfg
+    chunks = len(M.stream_bounds(ctx["dev"].pol_signed.shape[0], mcfg.stream_chunk))
+    name = f"13c {n} events cap {CAP_13C}, {chunks} chunks"
+    e, dropped, active, r_pad = check_forming(f"{name} first forming pass", ctx)
+    runs = _fused_and_host(name, ctx, iters=MAIN_ITERS, chunks=chunks)
+    for mode in ("fused", "host"):
+        loop_s, setup_s, pa, pr, nl, _c = runs[mode]
+        print(f"{name} {mode}: loop {loop_s:.4f} s, set-up {setup_s:.4f} s; peak "
+              f"{pa / 1e9:.3f} GB allocated, {pr / 1e9:.3f} GB reserved ({pr / n:.1f} bytes "
+              f"an event); A12 launches {nl}; dropped {dropped}, active {active} of R_pad "
+              f"{r_pad}", flush=True)
+    del ctx
+    torch.cuda.empty_cache()
+    return ((runs["fused"][4], runs["host"][4]), e,
+            {m: runs[m][3] for m in ("fused", "host")})
+
+
+@contextlib.contextmanager
+def _super_res_calls():
+    """Within the scope, ``EmbaPipeline.solve_super_res_map`` records its
+    pipeline and each call's seconds: {"pipe", "seconds": [...]}."""
+    import torch
+
+    from emba_tpu_torch import pipeline
+
+    got = {"seconds": []}
+    solve = pipeline.EmbaPipeline.solve_super_res_map
+
+    def recording(self, *a, **kw):
+        got["pipe"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(self, *a, **kw)
+        torch.cuda.synchronize()
+        got["seconds"].append(time.perf_counter() - t0)
+        return out
+
+    pipeline.EmbaPipeline.solve_super_res_map = recording
+    try:
+        yield got
+    finally:
+        pipeline.EmbaPipeline.solve_super_res_map = solve
+
+
+def phase_super_res(p, d):
+    """13d: ``cli run --super-res-height 2048`` on phase 11's scene (the
+    4096x2048 map of every kept event, chunks of 2^20): the four files and
+    super_res.json, the data cost falls, a second step is a fixed point
+    (the exact minimizer), and a second call gives the first one's map.
+    Returns (seconds, peak reserved bytes)."""
+    import torch
+
+    from emba_tpu_torch import io as eio
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch.probes.suite_run import suite_argv
+
+    out = os.path.join(d, "sr")
+    with _super_res_calls() as calls:
+        res, s = _cli_run("13d (super-resolution, recording)",
+                          suite_argv(p, ITERS_13D)
+                          + ["--out", out, "--super-res-height", str(SUPER_RES_HEIGHT)])
+    fr = os.path.join(out, "final_results")
+    for f in ("Gx_sr.bin", "Gy_sr.bin", "G_hsv_sr.png", "poisson_sr.png", "super_res.json"):
+        _require(os.path.exists(os.path.join(fr, f)), f"13d: {f} was not written")
+    with open(os.path.join(fr, "super_res.json")) as f:
+        sr = json.load(f)
+    gx, gy = eio.load_map_bin(os.path.join(fr, "Gx_sr.bin"), os.path.join(fr, "Gy_sr.bin"))
+    pipe = calls["pipe"]
+    seconds = calls["seconds"]
+    peaks = _peak_bytes()
+    for iters in (2, 1):
+        t0 = time.perf_counter()
+        out = pipe.solve_super_res_map(SUPER_RES_HEIGHT, num_iters=iters)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if iters == 2:
+            costs2 = out[2]
+    gx3, gy3 = out[:2]
+    peak = peaks()[1]
+    fixed = abs(costs2[2] - costs2[1]) / abs(costs2[1])
+    bits = np.array_equal(gx3, gx) and np.array_equal(gy3, gy)
+    mag = max(np.abs(gx).max(), np.abs(gy).max())
+    rep = max(np.abs(gx3 - gx).max(), np.abs(gy3 - gy).max()) / mag
+    active = int(np.count_nonzero(gx) + np.count_nonzero(gy))
+    print(f"13d: super_res.json {json.dumps(sr)}; map {gx.shape[1]}x{gx.shape[0]}, "
+          f"{active} nonzero values of {2 * gx.size}; two steps: data costs {costs2} "
+          f"(third vs second rel {fixed:.2e}, tolerance {MAP_ONLY_EXACT_REL_TOL:.0e}); "
+          f"a second call: bit-equal {bits}, rel {rep:.3e} (tolerance "
+          f"{M.MAP_ONLY_REPEAT_REL_TOL:.0e}); seconds a call {seconds} (the run's, then 2 "
+          f"steps, then 1; each pairs its events on the host); peak of the last two "
+          f"{peak / 1e9:.3f} GB reserved from an empty cache; the BA run's peak "
+          f"{s['peak_reserved_bytes'] / 1e9:.3f} GB", flush=True)
+    _require(gx.shape == (SUPER_RES_HEIGHT, 2 * SUPER_RES_HEIGHT), f"13d: map {gx.shape}")
+    _require(np.isfinite(gx).all() and np.isfinite(gy).all(), "13d: NaN/Inf in the map")
+    _require(sr["data_costs"][1] < sr["data_costs"][0], "13d: the data cost did not fall")
+    _require(fixed <= MAP_ONLY_EXACT_REL_TOL, f"13d: a second step moved the cost {fixed:.2e}")
+    _require(rep <= M.MAP_ONLY_REPEAT_REL_TOL, f"13d: two calls differ by {rep:.3e}")
+    del res, pipe, calls, out
+    return sr, peak
+
+
 def main() -> int:
     import torch
 
@@ -1388,15 +1820,21 @@ def main() -> int:
     a12_launches = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
+    p12, p13 = {}, {}
     with tempfile.TemporaryDirectory() as d:
         pipeline_launches, pipe_err, scene_files, rmse_run3 = phase_pipeline(device, d)
-        p12 = {}
         p12["12a"], err_a = phase_multi_start(scene_files, rmse_run3)
-    p12["12b"], err_b = phase_suite_row()
-    p12["12d"], err_d = phase_compact_1k(ctx)
-    p12["12e"], light_loops = phase_light(ctx)
-    del ctx
-    p12["12c"], err_c, case_4k, cap_4k = phase_4k(device)
+        p12["12b"], err_b = phase_suite_row()
+        p12["12d"], err_d = phase_compact_1k(ctx)
+        p12["12e"], light_loops = phase_light(ctx)
+        p13["13a"], chain, stream_loops, err_13a = phase_stream_1k(ctx, light_loops["classic"])
+        del ctx
+        p12["12c"], err_c, case_4k, cap_4k, scene_4k = phase_4k(device)
+        p13["13c"], err_13c, peaks_13c = phase_stream_4k(device, scene_4k)
+        del scene_4k
+        super_res, super_res_peak = phase_super_res(scene_files, d)
+        with tempfile.TemporaryDirectory(dir=d) as d13:
+            p13["13b"], run_13b, err_13b = phase_stream_above_cap(d13)
 
     # the A12 "ms" is the eager wrapper call on the synthetic main-shape case,
     # as in every earlier report; beside it the same call replayed from a
@@ -1408,7 +1846,8 @@ def main() -> int:
         "source": "emba_tpu_torch/kernels/csrc/a12_accum.cu",
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
         "launches": a12_launches,
-        "max_abs_err": max(syn[0], win[0], pipe_err, err_a, err_b, err_c, err_d),
+        "max_abs_err": max(syn[0], win[0], pipe_err, err_a, err_b, err_c, err_d, err_13a,
+                           err_13b, err_13c),
         "ms": syn[1],
         "plain_ms": syn[2],
         "bound_ms": syn[3],
@@ -1427,6 +1866,18 @@ def main() -> int:
         "compact_4k_bound_ms": case_4k[3],
         "classic_cap_large_rows_measured": cap_4k,
         "light_trial_loop_s": light_loops,
+        "streamed_launches": p13,
+        "stream_ms": chain[1],
+        "stream_plain_ms": chain[2],
+        "stream_bound_ms": chain[3],
+        "stream_bound_by": chain[4],
+        "stream_loop_s": stream_loops,
+        "stream_13b": {k: run_13b[k] for k in (
+            "events", "knots", "iterations", "loop_s", "setup_s", "events_per_s",
+            "peak_allocated_bytes", "peak_reserved_bytes")},
+        "stream_4k_peak_reserved_bytes": peaks_13c,
+        "super_res_data_costs": super_res["data_costs"],
+        "super_res_peak_reserved_bytes": super_res_peak,
     }, {
         "name": "gather_sum",
         "route": "cuda",

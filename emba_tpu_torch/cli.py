@@ -322,12 +322,14 @@ def main(argv=None):
     )
     r.add_argument(
         "--stream-chunk", dest="stream_chunk", type=int,
-        help="streamed forming chunk size in events (not ported yet: a "
-        "nonzero value raises, ROADMAP item 11)",
+        help="streamed forming chunk size in events (0 disables; default: "
+        "2^21 for a window above the classic-window cap)",
     )
     r.add_argument(
         "--stream-light", dest="stream_light", type=int, choices=(0, 1),
-        help="streaming tier (not ported yet, ROADMAP item 11)",
+        help="streaming tier: 0 = FULL (no event-sized array survives a pass; "
+        "the default), 1 = LIGHT (resident residual fields, Jacobians "
+        "recomputed)",
     )
     r.add_argument(
         "--num-devices", dest="num_devices", type=int,
@@ -347,8 +349,10 @@ def main(argv=None):
     r.add_argument("--spline-order", dest="spline_order", type=int, choices=[2, 4])
     r.add_argument(
         "--super-res-height", dest="super_res_height", type=int,
-        help="full-grid super-resolution map after BA (not ported yet: "
-        "raises, ROADMAP item 11)",
+        help="after BA, solve a full-grid super-resolution map at this "
+        "panorama height (width 2x) from the refined trajectory by the "
+        "map-only step; saves Gx_sr/Gy_sr, HSV and Poisson PNGs and "
+        "super_res.json (needs --out)",
     )
     r.add_argument(
         "--debug-nans", action="store_true",

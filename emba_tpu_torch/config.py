@@ -85,13 +85,18 @@ class BAConfig:
     # card.
     fused_event_cap: int | None = None
     # Active-pixel compaction cap (None: the pipeline picks one for
-    # panoramas of 2M pixels or more and retunes it between windows);
-    # light-trial LM (cost-only trials, Jacobians recomputed on accept).
-    # Streamed forming and its light tier (ROADMAP item 11): not ported
-    # yet; ModelConfig raises for each.
+    # panoramas of 2M pixels or more and retunes it between windows).
     compact_cap: int | None = None
+    # Streamed forming chunk (events): the linearization recomputed chunk by
+    # chunk inside the objective and forming passes instead of held for the
+    # whole window. None = chosen by the pipeline (2^21 above the
+    # classic-window cap); 0 disables.
     stream_chunk: int | None = None
+    # Streaming tier: False/None = FULL (no event-sized array survives a
+    # pass; the default), True = LIGHT (the (N,) residual fields resident,
+    # only the Jacobians recomputed).
     stream_light: bool | None = None
+    # Light-trial LM (cost-only trials, Jacobians recomputed on accept).
     light_trial: bool | None = None
     # Mid-window LM checkpointing (recording runs, host-driven loops): the
     # full LM resume state into checkpoint.npz every N iterations, so an
@@ -101,8 +106,11 @@ class BAConfig:
     # Devices for a sharded window (ROADMAP item 14, not ported: more than
     # one raises). None = one device.
     num_devices: int | None = None
-    # Super-resolution map output (streamed map-only, ROADMAP item 11: not
-    # ported, the pipeline raises). None disables.
+    # Super-resolution map: after a recording run, the full pixel grid at
+    # this panorama height (width 2x) solved by the closed-form map-only
+    # step from the refined trajectory, with no A12 and no compaction
+    # (final_results/Gx_sr.bin, Gy_sr.bin, G_hsv_sr.png, poisson_sr.png,
+    # super_res.json). None disables.
     super_res_height: int | None = None
 
     def model_config(self) -> ModelConfig:

@@ -33,6 +33,17 @@ def card_name_and_power_limit() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def add_at(out, idx, vals):
+    """``out[idx] += vals`` with repeated indices summed in a fixed order, so
+    that a run repeats bit for bit: ``index_add_`` on the CPU, and on CUDA
+    ``index_put_(accumulate=True)``, which sorts the indices (stably) and
+    adds each index's values in that order where ``index_add_`` would add
+    them by atomics in no fixed order. Returns ``out``."""
+    if out.device.type == "cuda":
+        return out.index_put_((idx,), vals, accumulate=True)
+    return out.index_add_(0, idx, vals)
+
+
 def cuda_time_ms(fn, reps: int = 5) -> float:
     """Median milliseconds of ``reps`` runs of ``fn`` after one warm-up,
     each between two CUDA events on the current stream."""

@@ -12,9 +12,9 @@ the paper's quantitative table.
 Runs on the first CUDA device unless ``--device cpu`` (``device="cpu"``)
 is asked for; without a GPU the default raises. Windows solve through the
 host-driven LM loop (``solver.solve_window``), as in the reference suite.
-Not ported: streamed forming (ROADMAP queue 1 item 11), so a sequence
-whose kept events exceed ``stream_over`` (the port's classic-window cap)
-raises, as do ``stream=True`` and ``stream_light=True``.
+A sequence whose kept events exceed ``stream_over`` (the port's
+classic-window cap) streams in chunks of :data:`STREAM_CHUNK` events, as
+does any with ``stream=True``.
 """
 
 from __future__ import annotations
@@ -63,7 +63,8 @@ ECROT_LIKE = {
 # (sample_mode, coarse_to_fine).
 MULTI_START = (("curr", False), ("mid", False), ("curr", True), ("mid", True))
 
-_STREAMING = model._LATER["stream_chunk"]
+# The chunk of a streamed row, the reference suite's.
+STREAM_CHUNK = 1 << 20
 
 
 def _contaminated(ev, seed, contaminate):
@@ -136,8 +137,9 @@ def run_sequence(
     ``selected_variant``. ``lm_iterations``, ``wall_s`` and
     ``events_per_s`` cover every solve of the row: all variants and their
     coarse stages. ``stream_over``: the kept-event count above which the
-    reference streams; streaming is not ported (ROADMAP item 11): a row
-    that would stream, ``stream=True`` or ``stream_light=True`` raises.
+    row streams (chunks of :data:`STREAM_CHUNK`, the window padded to a
+    multiple); ``stream`` forces it on or off, and ``stream_light`` picks
+    the LIGHT tier of a streamed row.
     ``device``: the first CUDA device by default; "cpu" runs on the CPU.
     ``dtype``: torch.float32 by default."""
     device = require_cuda() if device is None else torch.device(device)
@@ -175,10 +177,8 @@ def run_sequence(
         ev = pipeline.systematic_subsample(*ev, rate)
     if contaminate:
         ev = _contaminated(ev, seed, contaminate)
-    if stream_light or (stream if stream is not None else len(ev[0]) > stream_over):
-        raise NotImplementedError(
-            f"{name}: {len(ev[0])} events need streamed forming (stream_over "
-            f"{stream_over}): not ported yet, see {_STREAMING}")
+    if stream if stream is not None else len(ev[0]) > stream_over:
+        cfg = dataclasses.replace(cfg, stream_chunk=STREAM_CHUNK, stream_light=stream_light)
 
     # front-end-like perturbation: smooth random walk on the knots
     steps = rng.normal(size=(base_traj.num_knots, 3)) * perturb
@@ -186,7 +186,8 @@ def run_sequence(
     walk -= walk[0]
     traj0 = dataclasses.replace(base_traj, knots=spline._np_exp(walk) @ base_traj.knots)
     win = pairing.build_window(ev[0], ev[1], ev[2], ev[3], cam.width, traj0.locate, 100)
-    dev = model.DeviceWindow.from_window(win, cam.bearing_lut(), cam.width, dtype, device)
+    dev = model.DeviceWindow.from_window(win, cam.bearing_lut(), cam.width, dtype, device,
+                                         pad_multiple=cfg.stream_chunk or 1)
     tt = np.linspace(0.02 * duration, 0.98 * duration, 300)
     R_gt = scene.traj.evaluate(tt).numpy()
 

@@ -265,12 +265,29 @@ def a12_accumulate_plain(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix: int,
                          dim_pose: int, order: int, carry=None):
     """Plain torch version with the contract of :func:`a12_accumulate`, in
     the dtype of ``Jc``: one-hot row expansion and a product for A11/b1,
-    ``index_add_`` for A22, b2 and A12, CHUNK measurements at a time."""
+    indexed adds in a fixed order (``device.add_at``) for A22, b2 and A12,
+    CHUNK measurements at a time; a run repeats bit for bit on either
+    device. f32 inputs are summed in f64 and each output rounded once into
+    f32 (added into ``carry`` with one rounding): the version the kernel is
+    held to is exact to f32 rounding, not a second f32 order of summation,
+    whose rounding an LM window carries into its cost as far as the
+    kernel's own."""
+    from ..device import add_at
+
+    if Jc.dtype == torch.float32:
+        wide = [t.double() if t.is_floating_point() else t
+                for t in (pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA)]
+        sums = a12_accumulate_plain(*wide, num_pix, dim_pose, order)
+        if carry is None:
+            return tuple(t.float() for t in sums)
+        for c, t in zip(carry, sums):
+            c.copy_(t.add_(c))
+        return carry
     dt, device = Jc.dtype, Jc.device
     d = 3 * order
     r_pad, dp_pad = padded_dims(num_pix, dim_pose)
     a12, px5, a11b = carry if carry is not None else _zeros_out(r_pad, dp_pad, dt, device)
-    a12_flat = a12.view(-1)
+    a12_flat, px5_flat = a12.view(-1), px5.view(-1)
     col = torch.arange(dim_pose, device=device)
     for lo in range(0, pm_pix.shape[0], CHUNK):
         sl = slice(lo, lo + CHUNK)
@@ -289,17 +306,15 @@ def a12_accumulate_plain(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix: int,
         a11b[:dim_pose, :dim_pose] += rows.T @ (rows * w[:, None])
         a11b[dp_pad, :dim_pose] += rows.T @ we
 
-        px5[:, 0].index_add_(0, pix, w * dxk * dxk)
-        px5[:, 1].index_add_(0, pix, w * dxk * dyk)
-        px5[:, 2].index_add_(0, pix, w * dyk * dyk)
-        px5[:, 3].index_add_(0, pix, we * dxk)
-        px5[:, 4].index_add_(0, pix, we * dyk)
+        for k, v in enumerate((w * dxk * dxk, w * dxk * dyk, w * dyk * dyk, we * dxk,
+                               we * dyk)):
+            add_at(px5_flat, pix * 8 + k, v)
 
         rowbase = pix * (2 * dp_pad)
         for seg, Jh in ((ick, Jck), (ipk, Jpk)):
             colbase = rowbase + 3 * seg
             for j in range(d):
                 wJ = w * Jh[j]
-                a12_flat.index_add_(0, colbase + j, wJ * dxk)
-                a12_flat.index_add_(0, colbase + dp_pad + j, wJ * dyk)
+                add_at(a12_flat, colbase + j, wJ * dxk)
+                add_at(a12_flat, colbase + dp_pad + j, wJ * dyk)
     return a12, px5, a11b

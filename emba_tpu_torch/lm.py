@@ -100,6 +100,16 @@ def _schedule_state(cost_min, max_num_iter, dt, device):
             torch.zeros((max_num_iter + 1, len(TRACE_COLS)), dtype=dt, device=device))
 
 
+def _where_tree(cond, new, old):
+    """``torch.where(cond, new, old)`` over a tensor or a dataclass of
+    tensors (a Linearization)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, new, old)
+    return dataclasses.replace(new, **{
+        f.name: torch.where(cond, getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(new)})
+
+
 def lm_while(knots, Gx, Gy, *, objective, form, solve_update, sys_stats=None,
              tol_fun, max_num_iter: int, num_times_tol_fun_sat: int,
              carry_aux: bool = False, on_step=None, stats: LoopStats | None = None):
@@ -118,25 +128,30 @@ def lm_while(knots, Gx, Gy, *, objective, form, solve_update, sys_stats=None,
     Classic mode: the system is re-formed only after an accepted step, from
     the trial linearization; a reject keeps it. (The reference also forms
     after the accept that ends the loop; that system is never used, so
-    this loop skips it.) ``carry_aux``, the streamed tier's re-form at the
-    top of every iteration, is not ported.
+    this loop skips it.) With ``carry_aux`` (the reference's fused FULL
+    streamed tier) the loop carries the forming input ``aux`` instead of
+    the system, merged with ``torch.where`` on accept, and re-forms at the
+    top of every iteration: a forming pass an iteration, rejects included,
+    as the reference's loop counts them; forming is deterministic in the
+    state, so the steps are those of classic mode.
 
     Returns ``(knots, Gx, Gy, cost_min, it, converged, trace)`` with
     ``trace`` of shape ``(max_num_iter + 1, 6)`` holding ``TRACE_COLS``
     rows for iterations ``[0, it)``.
     """
-    if carry_aux:
-        raise NotImplementedError(
-            "lm_while(carry_aux=True), the streamed tier: not ported yet, see "
-            "ROADMAP queue 1 item 11")
     sys_stats = sys_stats or _no_sys_stats
     t0 = time.perf_counter()
     cost0, aux = objective(knots, Gx, Gy)
-    sys = form(aux, knots, Gx, Gy)
-    forms = 1
+    forms = 0
+    if not carry_aux:
+        sys = form(aux, knots, Gx, Gy)
+        forms = 1
     lam, cost_min, count_tol, it, converged, trace = _schedule_state(
         cost0, max_num_iter, Gx.dtype, Gx.device)
     while bool(keep_running(lam, cost_min, it, converged, max_num_iter)):
+        if carry_aux:
+            sys = form(aux, knots, Gx, Gy)
+            forms += 1
         knots_new, gx_new, gy_new = solve_update(sys, knots, Gx, Gy, lam)
         cost_new, aux_new = objective(knots_new, gx_new, gy_new)
         accept, lam_new, cost_min_new, count_tol, converged = schedule_step(
@@ -148,8 +163,10 @@ def lm_while(knots, Gx, Gy, *, objective, form, solve_update, sys_stats=None,
         lam, cost_min, it = lam_new, cost_min_new, it + 1
         if on_step is not None:
             on_step()
-        if bool(accept) and bool(keep_running(lam, cost_min, it, converged,
-                                              max_num_iter)):
+        if carry_aux:
+            aux = _where_tree(accept, aux_new, aux)
+        elif bool(accept) and bool(keep_running(lam, cost_min, it, converged,
+                                                max_num_iter)):
             sys = form(aux_new, knots, Gx, Gy)
             forms += 1
     if stats is not None:
@@ -223,6 +240,16 @@ class GraphedLoop:
     the forming passes and the result bits of :func:`lm_while`. Every
     decision is taken on the device. The callables must read whatever else
     changes between runs from tensors they hold, not from Python values.
+
+    The streamed tiers run through the same four graphs: ``aux`` is the
+    (HW,) inlier count map in the FULL tier and the light linearization in
+    the LIGHT tier, and each chunk's work is captured unrolled (the chunk
+    count follows from the window's shape). Here too the system is formed
+    only after an accept, as the reference's host loop does for streamed
+    windows; the reference's fused FULL-tier loop re-forms on rejects as
+    well (:func:`lm_while` with ``carry_aux``), only so that XLA does not
+    hold A12 double-buffered across its while loop, and a graph's outputs
+    are static buffers, so the card gains no memory from it.
     """
 
     def __init__(self, knots, Gx, Gy, *, objective, form, solve_update,

@@ -14,6 +14,12 @@ Counterpart of the classic path of ``emba_tpu/model.py``:
   domain or, with ``compact_cap``, over the compacted active pixels;
 * the light linearization (``need_deriv=False``: residual fields only) and
   its forming pass :func:`form_normal_eq_light`, for ``light_trial``;
+* the streamed passes (``stream_chunk``): the objective, the light
+  linearization and the forming pass recomputed chunk by chunk from the
+  per-batch pose tables, the A12 kernel chained through its ``carry``
+  (FULL tier: nothing event-sized survives a pass; LIGHT tier,
+  ``stream_light``: the (N,) residual fields stay resident), and the
+  map-only closed-form solve of a fixed trajectory;
 * the Schur solve as two GEMMs over the A12 column planes and one Cholesky.
 
 Per-event arrays keep the reference layouts: (N,) vectors, (3, N)
@@ -29,12 +35,8 @@ import torch
 
 from . import lie, warp
 from .camera import EquirectangularCamera
+from .device import add_at
 from .kernels import a12_accum
-
-_LATER = {
-    "stream_chunk": "ROADMAP queue 1 item 11 (streamed tiers)",
-    "stream_light": "ROADMAP queue 1 item 11 (streamed tiers)",
-}
 
 # Row alignment of a compacted row space: the reference's TILE_PX, so that
 # an undersized cap keeps the same slots, and drops the same active
@@ -68,9 +70,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.compact_cap is not None and self.compact_cap < 1:
             raise ValueError(f"ModelConfig.compact_cap must be >= 1, got {self.compact_cap}")
-        for name, where in _LATER.items():
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(f"ModelConfig.{name}: not ported yet, see {where}")
+        if self.stream_chunk is not None and self.stream_chunk < 1:
+            raise ValueError(f"ModelConfig.stream_chunk must be >= 1, got {self.stream_chunk}")
 
     @property
     def num_pix(self) -> int:
@@ -133,21 +134,33 @@ class DeviceWindow:
 
     @classmethod
     def from_window(cls, win, bearing_lut: np.ndarray, sensor_width: int, dtype,
-                    device):
-        """Move a ``pairing.EventWindow`` to ``device``."""
+                    device, pad_multiple: int = 1):
+        """Move a ``pairing.EventWindow`` to ``device``. ``pad_multiple``:
+        pad the per-event arrays to a multiple of this length (a streamed
+        window's ``stream_chunk``, so that its last chunk is full). Padding
+        slots are non-measurements: a unit-z bearing (a zero bearing warps
+        to NaN), ``has_prev=False`` (an inlier nowhere), batch 0."""
         spix = win.sensor_flat_idx(sensor_width)
+        n = len(spix)
+        pad = -(-n // pad_multiple) * pad_multiple - n
 
-        def t(a, dt):
+        def t(a, dt, v=0):
+            if pad:
+                a = np.concatenate([a, np.full(pad, v, a.dtype)])
             return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
+        b = bearing_lut[spix].T
+        if pad:
+            b = np.concatenate([b, np.tile(np.array([[0.0], [0.0], [1.0]], b.dtype), pad)],
+                               axis=1)
         return cls(
-            bearings=t(bearing_lut[spix].T, dtype),
+            bearings=torch.as_tensor(np.ascontiguousarray(b)).to(device=device, dtype=dtype),
             pol_signed=t(2.0 * (win.pol.astype(np.float64) - 0.5), dtype),
             prev_idx=t(np.maximum(win.prev_idx, 0).astype(np.int32), torch.int32),
-            has_prev=t(win.prev_idx >= 0, torch.bool),
+            has_prev=t(win.prev_idx >= 0, torch.bool, False),
             batch_ids=t(win.batch_ids().astype(np.int32), torch.int32),
-            batch_s=t(win.batch_s.astype(np.int32), torch.int32),
-            batch_u=t(win.batch_u, dtype),
+            batch_s=torch.as_tensor(win.batch_s.astype(np.int32)).to(device),
+            batch_u=torch.as_tensor(np.asarray(win.batch_u)).to(device=device, dtype=dtype),
             sensor_pix=t(spix.astype(np.int32), torch.int32),
         )
 
@@ -370,6 +383,21 @@ def _meas_weights(e, inlier, pm_pix, active, cfg, dt, in_row=None):
     return torch.where(w, yi, torch.zeros_like(yi)).to(dt)
 
 
+def _rows_and_weights(e, inlier, pm_pix, active, pix2row, r_pad, cfg, dt):
+    """(row_of_meas, wA, dropped) of a measurement set in a row space."""
+    if cfg.compact_cap is None:
+        row_of_meas = pm_pix
+        wA = _meas_weights(e, inlier, pm_pix, active, cfg, dt)
+        dropped = torch.zeros((), dtype=torch.int32, device=e.device)
+    else:
+        row_of_meas = pix2row[pm_pix.long()]
+        in_row = row_of_meas < r_pad
+        wA = _meas_weights(e, inlier, pm_pix, active, cfg, dt, in_row)
+        used = inlier & active[pm_pix.long()]
+        dropped = torch.sum((used & ~in_row).to(torch.int32)).to(torch.int32)
+    return row_of_meas, wA, dropped
+
+
 def forming_inputs(lin: Linearization, cfg: ModelConfig, dt):
     """What one forming pass hands the A12 kernel, and its row space:
     (row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)).
@@ -378,16 +406,8 @@ def forming_inputs(lin: Linearization, cfg: ModelConfig, dt):
     from every block (else the system turns asymmetric) and counted in
     ``dropped``, on the device."""
     active, r_pad, pix2row, row_active = _row_space(lin.num_ev_map, cfg)
-    if cfg.compact_cap is None:
-        row_of_meas = lin.pm_pix
-        wA = _meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, dt)
-        dropped = torch.zeros((), dtype=torch.int32, device=lin.e.device)
-    else:
-        row_of_meas = pix2row[lin.pm_pix.long()]
-        in_row = row_of_meas < r_pad
-        wA = _meas_weights(lin.e, lin.inlier, lin.pm_pix, active, cfg, dt, in_row)
-        used = lin.inlier & active[lin.pm_pix.long()]
-        dropped = torch.sum((used & ~in_row).to(torch.int32)).to(torch.int32)
+    row_of_meas, wA, dropped = _rows_and_weights(lin.e, lin.inlier, lin.pm_pix, active,
+                                                 pix2row, r_pad, cfg, dt)
     return row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)
 
 
@@ -431,6 +451,269 @@ def form_normal_eq_light(lin: Linearization, knots, Gx, Gy, dev: DeviceWindow,
     Jp = hx[None, :] * dpm_prev[0] + hy[None, :] * dpm_prev[1]
     full = dataclasses.replace(lin, Jc=Jc, Jp=Jp)
     return form_normal_eq(full, Gx, Gy, cfg, num_knots, reg_scale)
+
+
+# ---------------------------------------------------------------------------
+# Streamed passes (``stream_chunk``).
+# ---------------------------------------------------------------------------
+
+
+def prev_records(dev: DeviceWindow):
+    """(prev bearings (3, N), prev batch ids (N,)): each event's prev-event
+    bearing and batch, gathered once a window. They do not depend on the
+    state, so every streamed pass of every iteration reads contiguous
+    slices of them instead of gathering by ``prev_idx`` per chunk."""
+    prev = dev.prev_idx.long()
+    return dev.bearings[:, prev], dev.batch_ids[prev]
+
+
+def stream_bounds(n: int, chunk: int) -> list[tuple[int, int]]:
+    """The (lo, hi) event slices of the streamed passes: ``ceil(n /
+    chunk)`` of them (one, empty, for an empty window), from the shapes
+    alone, so a CUDA graph holds a fixed chunk count a window shape. The
+    last is short unless the window was padded to a chunk multiple
+    (``DeviceWindow.from_window(..., pad_multiple=stream_chunk)``)."""
+    return [(lo, min(lo + chunk, n)) for lo in range(0, max(n, 1), chunk)]
+
+
+def _prev_or_records(dev, prev_bearings, prev_bids):
+    if prev_bearings is None:
+        return prev_records(dev)
+    return prev_bearings, prev_bids
+
+
+def _make_stream_chunk_fn(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+                          need_deriv: bool, prev_bearings=None, prev_bids=None):
+    """The chunk recompute of the FULL tier: the per-batch pose tables and
+    the stacked map planes once, then ``pieces(lo, hi)`` re-runs the warp
+    of the events [lo, hi) and of their prev events (from the prev
+    records), the pairing residual (the shared :func:`_pair_residual`) and,
+    with ``need_deriv``, the Jacobians (:func:`_pose_jac_coeffs`): the
+    values of :func:`linearize_from_warp` on those events. Chunk inputs
+    are views of the window. Returns (bounds, pieces); ``pieces`` gives
+    (e, inlier, pm_pix, i_c, i_p, dx, dy) and, with ``need_deriv``, (Jc,
+    Jp) after them."""
+    order = cfg.spline_order
+    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
+    R_b, J_b = warp.spline_tables(knots, dev.batch_s, dev.batch_u, order, need_deriv)
+    gmaps = _stacked_gmaps(Gx, Gy, need_deriv)
+
+    def pieces(lo, hi):
+        pm_c, ic_c, dpm_c = warp.warp_from_tables(
+            R_b, J_b, dev.batch_s, dev.batch_ids[lo:hi], dev.bearings[:, lo:hi],
+            cfg.pano, order, need_deriv)
+        pm_p, ip_c, dpm_p = warp.warp_from_tables(
+            R_b, J_b, dev.batch_s, pbid[lo:hi], pb[:, lo:hi], cfg.pano, order, need_deriv)
+        dx, dy, inl, pmp, g_at, e = _pair_residual(
+            pm_c[0], pm_c[1], pm_p[0], pm_p[1], dev.has_prev[lo:hi],
+            dev.pol_signed[lo:hi], gmaps, cfg)
+        if not need_deriv:
+            return e, inl, pmp, ic_c, ip_c, dx, dy
+        tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
+        Jc = tx[None, :] * dpm_c[0] + ty[None, :] * dpm_c[1]
+        Jp = hx[None, :] * dpm_p[0] + hy[None, :] * dpm_p[1]
+        return e, inl, pmp, ic_c, ip_c, dx, dy, Jc, Jp
+
+    return stream_bounds(dev.pol_signed.shape[0], cfg.stream_chunk), pieces
+
+
+def _make_stream_chunk_fn_light(lin: Linearization, knots, Gx, Gy, dev: DeviceWindow,
+                                cfg: ModelConfig, prev_bearings=None, prev_bids=None):
+    """The chunk recompute of the LIGHT tier: the (N,) fields of the light
+    linearization ``lin`` stay resident (slices of them are the chunk's);
+    only the Jacobians are recomputed, from one warp of the chunk's events
+    and one of their prev events. ``pieces`` has the contract of
+    :func:`_make_stream_chunk_fn` with ``need_deriv``."""
+    order = cfg.spline_order
+    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
+    R_b, J_b = warp.spline_tables(knots, dev.batch_s, dev.batch_u, order, True)
+    gmaps = _stacked_gmaps(Gx, Gy)
+
+    def pieces(lo, hi):
+        _, _, dpm_c = warp.warp_from_tables(R_b, J_b, dev.batch_s, dev.batch_ids[lo:hi],
+                                            dev.bearings[:, lo:hi], cfg.pano, order)
+        _, _, dpm_p = warp.warp_from_tables(R_b, J_b, dev.batch_s, pbid[lo:hi],
+                                            pb[:, lo:hi], cfg.pano, order)
+        pmp, dx, dy = lin.pm_pix[lo:hi], lin.dx[lo:hi], lin.dy[lo:hi]
+        g_at = gmaps[:, pmp.long()]
+        tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
+        Jc = tx[None, :] * dpm_c[0] + ty[None, :] * dpm_c[1]
+        Jp = hx[None, :] * dpm_p[0] + hy[None, :] * dpm_p[1]
+        return (lin.e[lo:hi], lin.inlier[lo:hi], pmp, lin.i_c[lo:hi], lin.i_p[lo:hi],
+                dx, dy, Jc, Jp)
+
+    return stream_bounds(lin.e.shape[0], cfg.stream_chunk), pieces
+
+
+def _activity_and_cost(bounds, pieces, cfg, dt, device):
+    """Pass over the chunks: (data cost, (HW,) int32 inlier count map).
+    Integer adds are exact, so the map is the same in any order."""
+    cost = torch.zeros((), dtype=dt, device=device)
+    nem = torch.zeros(cfg.num_pix, dtype=torch.int32, device=device)
+    for lo, hi in bounds:
+        e, inl, pmp = pieces(lo, hi)[:3]
+        nem.index_add_(0, pmp.long(), inl.to(torch.int32))
+        cost = cost + data_cost(e, cfg)
+    return cost, nem
+
+
+def cost_and_activity_streamed(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+                               prev_bearings=None, prev_bids=None):
+    """The FULL tier's objective: (data cost, (HW,) inlier count map),
+    chunk by chunk, with no event-sized output: the streamed counterpart
+    of ``linearize(..., need_deriv=False)`` and :func:`data_cost`."""
+    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
+                                           prev_bearings, prev_bids)
+    return _activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)
+
+
+def linearize_streamed_light(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+                             prev_bearings=None, prev_bids=None):
+    """The LIGHT tier's objective: the light linearization of
+    ``linearize(..., need_deriv=False)`` (the same fields, by the shared
+    residual core), computed chunk by chunk into its (N,) fields, and the
+    data cost summed a chunk at a time. Returns (lin, cost)."""
+    dt, device = Gx.dtype, Gx.device
+    n = dev.pol_signed.shape[0]
+    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
+                                           prev_bearings, prev_bids)
+    e = torch.empty(n, dtype=dt, device=device)
+    inl = torch.empty(n, dtype=torch.bool, device=device)
+    pmp, ic, ip = (torch.empty(n, dtype=torch.int32, device=device) for _ in range(3))
+    dx, dy = torch.empty(n, dtype=dt, device=device), torch.empty(n, dtype=dt, device=device)
+    cost = torch.zeros((), dtype=dt, device=device)
+    nem = torch.zeros(cfg.num_pix, dtype=torch.int32, device=device)
+    for lo, hi in bounds:
+        got = pieces(lo, hi)
+        for buf, v in zip((e, inl, pmp, ic, ip, dx, dy), got):
+            buf[lo:hi] = v
+        nem.index_add_(0, got[2].long(), got[1].to(torch.int32))
+        cost = cost + data_cost(got[0], cfg)
+    empty = torch.zeros((cfg.dim_block, 0), dtype=dt, device=device)
+    return Linearization(e=e, inlier=inl, pm_pix=pmp, num_ev_map=nem, dx=dx, dy=dy,
+                         Jc=empty, Jp=empty, i_c=ic, i_p=ip), cost
+
+
+def form_normal_eq_streamed(aux, knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+                            num_knots: int, reg_scale=None, prev_bearings=None,
+                            prev_bids=None) -> NormalEq:
+    """The streamed forming pass: the normal equations of
+    :func:`form_normal_eq`, with the linearization recomputed in chunks of
+    ``cfg.stream_chunk`` events and each chunk added into the same
+    accumulators: the A12 kernel's first call makes them and every later
+    call adds into them in place (``carry``), so a pass launches the kernel
+    once a chunk and holds one A12. ``aux`` is the objective's forming
+    input at the state formed: the (HW,) inlier count map in the FULL tier
+    (:func:`cost_and_activity_streamed`), the light linearization in the
+    LIGHT tier (``cfg.stream_light``, :func:`linearize_streamed_light`).
+    ``dropped`` sums each chunk's, on the device."""
+    dt = Gx.dtype
+    dim_pose = 3 * num_knots
+    if cfg.stream_light:
+        num_ev_map = aux.num_ev_map
+        bounds, pieces = _make_stream_chunk_fn_light(aux, knots, Gx, Gy, dev, cfg,
+                                                     prev_bearings, prev_bids)
+    else:
+        num_ev_map = aux
+        bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, True,
+                                               prev_bearings, prev_bids)
+    active, r_pad, pix2row, row_active = _row_space(num_ev_map, cfg)
+    carry = None
+    dropped = torch.zeros((), dtype=torch.int32, device=Gx.device)
+    for lo, hi in bounds:
+        e, inl, pmp, ic, ip, dx, dy, Jc, Jp = pieces(lo, hi)
+        rows, wA, drop = _rows_and_weights(e, inl, pmp, active, pix2row, r_pad, cfg, dt)
+        carry = a12_accum.a12_accumulate(rows, ic, ip, Jc, Jp, dx, dy, e, wA, r_pad,
+                                         dim_pose, cfg.spline_order, carry=carry)
+        dropped = dropped + drop
+    a12, px5, a11b = carry
+    dp_pad = a12.shape[1] // 2
+    return _finish_normal_eq(
+        a11b[:dim_pose, :dim_pose], a11b[dp_pad, :dim_pose], px5[:, 0], px5[:, 1],
+        px5[:, 2], px5[:, 3], px5[:, 4], a12, row_active, pix2row, active, Gx, Gy,
+        cfg, r_pad, dt, dropped, reg_scale,
+    )
+
+
+# The map-only step sums its per-pixel blocks in a fixed order
+# (``device.add_at``: sorted on CUDA, where ``index_add_`` would add by
+# atomics), so two runs should agree in bits. The tolerance two runs are
+# held to, as a fraction of the map's largest magnitude, is that of sums in
+# any order: the regularizer keeps each 2x2 block's determinant >= alpha^2,
+# so reordered f32 sums move the solved map by a few ulps of its largest
+# values at most.
+MAP_ONLY_REPEAT_REL_TOL = 1e-5
+
+
+def map_only_step(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
+                  prev_bearings=None, prev_bids=None):
+    """One map-only step with the trajectory fixed (the super-resolution
+    path): with the pose frozen the residual is affine in the map, so the
+    map block decouples into per-pixel 2x2 systems ``(A22 + alpha I) x2 =
+    b2 - alpha G`` and one closed-form solve is the exact minimizer of the
+    quadratic cost. Two chunked passes (the inlier count map and the data
+    cost; then the active-masked A22 / b2 sums, in a fixed order), no A11
+    or A12, so memory is
+    O(HW + chunk) at any panorama size. With ``use_irls`` the weights are
+    taken at the input map. Returns (Gx', Gy', data cost at the input map,
+    num_ev_map); inactive pixels reset to zero."""
+    dt, device = Gx.dtype, Gx.device
+    hw = cfg.num_pix
+    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
+                                           prev_bearings, prev_bids)
+    cost0, nem = _activity_and_cost(bounds, pieces, cfg, dt, device)
+    active = nem >= cfg.thres_valid_pixel
+
+    a22xx, a22xy, a22yy, b2x, b2y = (torch.zeros(hw, dtype=dt, device=device)
+                                     for _ in range(5))
+    for lo, hi in bounds:
+        e, inl, pmp, _ic, _ip, dx, dy = pieces(lo, hi)
+        pix = pmp.long()
+        wA = _meas_weights(e, inl, pmp, active, cfg, dt)
+        we = wA * e
+        add_at(a22xx, pix, wA * dx * dx)
+        add_at(a22xy, pix, wA * dx * dy)
+        add_at(a22yy, pix, wA * dy * dy)
+        add_at(b2x, pix, we * dx)
+        add_at(b2y, pix, we * dy)
+
+    af = active.to(dt)
+    gx_f, gy_f = Gx.reshape(-1).to(dt), Gy.reshape(-1).to(dt)
+    a = a22xx + cfg.alpha * af
+    b = a22xy
+    d = a22yy + cfg.alpha * af
+    rx = b2x - cfg.alpha * gx_f * af
+    ry = b2y - cfg.alpha * gy_f * af
+    det = a * d - b * b
+    det_safe = torch.where(torch.abs(det) < 1e-30, torch.ones_like(det), det)
+    ok = (active & (torch.abs(det) >= 1e-30)).to(dt) / det_safe
+    x2x = (d * rx - b * ry) * ok
+    x2y = (a * ry - b * rx) * ok
+    zero = torch.zeros((), dtype=dt, device=device)
+    gx_new = torch.where(active, gx_f + x2x, zero).reshape(Gx.shape)
+    gy_new = torch.where(active, gy_f + x2y, zero).reshape(Gy.shape)
+    return gx_new, gy_new, cost0, nem
+
+
+def solve_map_only(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig, num_iters: int = 1,
+                   prev_bearings=None, prev_bids=None):
+    """The map from a fixed trajectory (:func:`map_only_step`). One step is
+    exact for the quadratic cost; ``num_iters > 1`` refreshes the IRLS
+    weights between steps. Without ``stream_chunk`` it streams in chunks of
+    2^20 events; compaction does not apply (rows are pixels). Returns (Gx,
+    Gy, costs): ``num_iters + 1`` data costs, the last at the final map."""
+    if cfg.stream_chunk is None:
+        cfg = dataclasses.replace(cfg, stream_chunk=1 << 20)
+    if cfg.compact_cap is not None:
+        cfg = dataclasses.replace(cfg, compact_cap=None)
+    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
+    costs = []
+    for _ in range(num_iters):
+        Gx, Gy, cost, _nem = map_only_step(knots, Gx, Gy, dev, cfg, pb, pbid)
+        costs.append(float(cost))
+    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False, pb, pbid)
+    costs.append(float(_activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)[0]))
+    return Gx, Gy, costs
 
 
 def _finish_normal_eq(A11, b1, a22xx, a22xy, a22yy, b2x, b2y, A12, row_active,

@@ -8,7 +8,8 @@ orchestrator ``src/emba/emba.cpp``):
 * ``run()`` (``emba.cpp:400-471``): the sliding-window loop — event subset,
   pose-subset spline fit, alignment of the new control poses to the
   trajectory's tail, the window's LM solve (fused on CUDA graphs, or the
-  host-driven loop when recording), segment commit, window slide. The host
+  host-driven loop when recording; streamed above the classic-window cap),
+  segment commit, window slide. The host
   preparation of window k+1 runs on a worker thread while window k solves;
   it is numpy only, so it makes no CUDA call while the main thread captures
   a window's CUDA graphs;
@@ -18,13 +19,16 @@ orchestrator ``src/emba/emba.cpp``):
   panoramas, retuned after each window from its active-pixel count;
 * data recording (params.txt, iterations.txt, per-iteration map dumps,
   refined TUM trajectory, maps, runtime.json) and window-boundary and
-  mid-window checkpoints with resume.
+  mid-window checkpoints with resume;
+* the super-resolution map (``super_res_height``): after the run, the full
+  grid at that height solved by the closed-form map-only step from the
+  refined trajectory (:meth:`EmbaPipeline.solve_super_res_map`).
 
 The device: ``EmbaPipeline(..., device=None)`` runs on the first CUDA
 device and raises when there is none; only an explicit ``device="cpu"``
-runs on the CPU. Options whose code is not ported raise
-``NotImplementedError`` naming their ROADMAP item; nothing is replaced in
-silence.
+runs on the CPU. A sharded window (``num_devices`` > 1) is not ported and
+raises ``NotImplementedError`` naming its ROADMAP item; nothing is
+replaced in silence.
 """
 
 from __future__ import annotations
@@ -45,14 +49,12 @@ from .camera import PinholeCamera
 from .config import BAConfig
 from .device import require_cuda
 
-# Options whose code is not ported yet: setting one raises at run()
-# (ModelConfig raises for its own, model._LATER).
-_STREAMING = model._LATER["stream_chunk"]
 _SHARDED = "ROADMAP queue 1 item 14 (sharded windows)"
-_NOT_PORTED = {
-    "stream_light": _STREAMING,
-    "super_res_height": "ROADMAP queue 1 item 11 (streamed map-only super-resolution)",
-}
+# The chunk of a window the pipeline streams by itself (above the
+# classic-window cap), the reference's.
+AUTO_STREAM_CHUNK = 1 << 21
+# The chunk of the super-resolution map's passes unless stream_chunk is set.
+SUPER_RES_CHUNK = 1 << 20
 # The variants of a multi-start window, in the reference pipeline's order:
 # (sample_mode, coarse_to_fine).
 MULTI_START = (("curr", False), ("curr", True), ("mid", False), ("mid", True))
@@ -94,11 +96,24 @@ def retune_compact_cap(observed_active: int, hw: int) -> int:
 
 def count_active_pixels(knots, gx, gy, dev, mcfg) -> int:
     """Active pixels of a solved window: pano pixels with at least
-    ``thres_valid_pixel`` inlier events at its state, from the light
-    linearization on the window's device; the one host read of the
-    count."""
+    ``thres_valid_pixel`` inlier events at its state, on the window's
+    device; the one host read of the count. The map comes from the light
+    linearization, or for a streamed window from the FULL tier's chunked
+    objective, which holds nothing event-sized."""
+    if mcfg.stream_chunk is not None:
+        nem = model.cost_and_activity_streamed(knots, gx, gy, dev, mcfg)[1]
+    else:
+        nem = model.linearize(knots, gx, gy, dev, mcfg, need_deriv=False).num_ev_map
+    return int(torch.sum((nem >= mcfg.thres_valid_pixel).to(torch.int32)))
+
+
+def data_cost_at(knots, gx, gy, dev, mcfg) -> float:
+    """The data cost of a state (a streamed window's by the chunked
+    objective); one host read."""
+    if mcfg.stream_chunk is not None:
+        return float(model.cost_and_activity_streamed(knots, gx, gy, dev, mcfg)[0])
     lin = model.linearize(knots, gx, gy, dev, mcfg, need_deriv=False)
-    return int(torch.sum((lin.num_ev_map >= mcfg.thres_valid_pixel).to(torch.int32)))
+    return float(model.data_cost(lin.e, mcfg))
 
 
 def coarse_config(mcfg: model.ModelConfig):
@@ -135,18 +150,20 @@ def pool2(g) -> np.ndarray:
 # 4,000,000 events compacted to 2^21 rows (chip_smoke.py phase 12c, same
 # card) peaked at 29.96 GB reserved through the host loop (25.52 GB
 # fused), 7,490 bytes an event: 0.8 * 80e9 / 7490 = 8.5M. Above the cap
-# the reference streams; the port raises (ROADMAP item 11).
+# the window streams (AUTO_STREAM_CHUNK), as the reference's does.
 CLASSIC_CAP_SMALL_ROWS = 30_000_000
 CLASSIC_CAP_LARGE_ROWS = 8_000_000
 ROWS_SMALL = 1 << 20
-# The largest row space a classic window has run at (that 4M-event window).
-# Fitted to the two windows near 25-30 GB above (2^19 rows and 29.4M
-# events, 2^21 rows and 4M), a window takes about 13 KB a row (A12 and its
-# Schur products, at ~95 knots) and 600 bytes an event, so an uncompacted
-# 4K panorama (2^23 rows, which auto_compact_cap leaves uncompacted from
-# ~6.3M events on) would need over 100 GB whatever its events: a row space
-# above this raises (ROADMAP item 11), and the per-window retune stays
-# under it.
+# The largest row space a joint window runs at: a limit of the card's
+# memory, not of the events. Fitted to the two windows near 25-30 GB above
+# (2^19 rows and 29.4M events, 2^21 rows and 4M), a window takes about
+# 13 KB a row (A12 and its Schur products, at ~95 knots) and 600 bytes an
+# event; an uncompacted 4K panorama (2^23 rows, which auto_compact_cap
+# leaves uncompacted from ~6.3M events on) would need over 100 GB for its
+# A12 alone, however few its events. Streaming does not shrink it: every
+# chunk adds into the same A12. So a row space above this raises, and the
+# per-window retune stays under it; a full 4K grid is solved by the
+# map-only step instead (``super_res_height``), which holds no A12.
 ROWS_LARGE = 1 << 21
 
 
@@ -165,9 +182,11 @@ def plan_model_config(
     """The reference's pre-run decisions (``emba_tpu/pipeline.py:100-157``):
     first the compaction cap, which the pipeline picks by itself for a
     panorama of 2M pixels or more (:func:`auto_compact_cap`), then the
-    classic-window cap of the row space after compaction. Where the
-    reference would stream (the largest running window above that cap),
-    the port raises NotImplementedError with the ROADMAP item.
+    classic-window cap of the row space after compaction: a window above
+    it streams in chunks of :data:`AUTO_STREAM_CHUNK` events unless
+    ``cfg.stream_chunk`` was set (0 keeps it classic). The FULL tier is the
+    default; ``cfg.stream_light`` chooses the tier when it is set. A row
+    space above :data:`ROWS_LARGE` raises: streaming does not shrink A12.
 
     The largest-window count is exact: events are time-sorted, so each
     window's count is two searchsorteds, and only window starts whose
@@ -194,24 +213,22 @@ def plan_model_config(
     ) if len(edges_beg) else len(t)
     per_dev = max_win_events / max(1, n_dev)
     rows = mcfg.compact_cap or (mcfg.pano_width * mcfg.pano_height)
-    if cfg.stream_chunk is None and rows > ROWS_LARGE:
+    if rows > ROWS_LARGE:
         raise NotImplementedError(
-            f"a row space of {rows} rows is above {ROWS_LARGE}, the largest a "
-            f"classic window has run at, and needs streamed forming: not ported "
-            f"yet, see {_STREAMING}")
+            f"a row space of {rows} rows is above pipeline.ROWS_LARGE = {ROWS_LARGE}: "
+            f"its A12 alone would not fit the card's memory, and streamed forming "
+            f"adds every chunk into the same A12, so it does not shrink it. Set a "
+            f"compact_cap of at most {ROWS_LARGE}, or solve the full grid with the "
+            f"map-only step (super_res_height, cli --super-res-height)")
     classic_cap = classic_cap_small if rows <= ROWS_SMALL else classic_cap_large
     if cfg.stream_chunk is None and per_dev > classic_cap:
-        raise NotImplementedError(
-            f"a window of {max_win_events} events is above the classic-window cap "
-            f"{classic_cap} and needs streamed forming: not ported yet, see "
-            f"{_STREAMING}")
+        mcfg = dataclasses.replace(mcfg, stream_chunk=AUTO_STREAM_CHUNK)
+    if mcfg.stream_chunk is not None and cfg.stream_light is not None:
+        mcfg = dataclasses.replace(mcfg, stream_light=bool(cfg.stream_light))
     return mcfg, auto_cap
 
 
 def _check_ported(cfg: BAConfig):
-    for name, where in _NOT_PORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"BAConfig.{name}: not ported yet, see {where}")
     if (cfg.num_devices or 1) > 1:
         raise NotImplementedError(
             f"BAConfig.num_devices={cfg.num_devices}: not ported yet, see {_SHARDED}")
@@ -232,6 +249,9 @@ class RunResult:
     gy: np.ndarray
     window_stats: list
     result_dir: str | None = None
+    # the model configuration of the last window as the run planned it
+    # (compaction cap, streaming chunk and tier)
+    model_config: model.ModelConfig | None = None
 
 
 @dataclasses.dataclass
@@ -633,8 +653,11 @@ class EmbaPipeline:
 
                 # The window's upload, on this thread.
                 win = prep.win
+                # a streamed window is padded to a chunk multiple: its last
+                # chunk is full, and its chunk count follows from its shape
                 dev = model.DeviceWindow.from_window(
-                    win, self.bearing_lut, self.camera.width, self.dtype, self.device)
+                    win, self.bearing_lut, self.camera.width, self.dtype, self.device,
+                    pad_multiple=mcfg.stream_chunk or 1)
                 win_id = count_window
                 if cfg.multi_start and resume_lm is None:
                     knots, gx_j, gy_j, stats, final_cost = self._solve_multi_start(
@@ -699,6 +722,8 @@ class EmbaPipeline:
                 self.gx,
                 self.gy,
             )
+            if cfg.super_res_height:
+                self._write_super_res(cfg.super_res_height)
             self._write_runtime(window_stats)
             self._iter_log.close()
 
@@ -708,7 +733,58 @@ class EmbaPipeline:
             gy=self.gy,
             window_stats=window_stats,
             result_dir=self.result_dir,
+            model_config=mcfg,
         )
+
+    def solve_super_res_map(self, height: int, width: int | None = None,
+                            num_iters: int | None = None):
+        """The super-resolution map: the full pixel grid at ``height``
+        (width ``2 * height`` unless given) solved from the refined
+        trajectory over every event in its time support, by the closed-form
+        map-only step (:func:`model.solve_map_only`): with the pose fixed
+        the residual is affine in the map, so one per-pixel 2x2 solve is
+        the exact minimizer of the regularized quadratic cost, with no A11
+        or A12 and no compaction at any resolution. The outlier cut scales
+        with the resolution (it is in panorama pixels). The events stream
+        in chunks of ``stream_chunk`` (:data:`SUPER_RES_CHUNK` unless set)
+        on the pipeline's device. ``num_iters`` defaults to 3 with IRLS
+        (weight refreshes), else 1. Returns (gx, gy, data costs) as numpy
+        maps and floats (the last cost at the solved map)."""
+        _check_ported(self.cfg)
+        W = width or 2 * height
+        cfg0 = self.cfg.model_config()
+        chunk = cfg0.stream_chunk or SUPER_RES_CHUNK
+        mcfg = dataclasses.replace(
+            cfg0, pano_width=W, pano_height=height,
+            outlier_dp_norm=cfg0.outlier_dp_norm * height / cfg0.pano_height,
+            compact_cap=None, stream_chunk=chunk)
+        m = (self.t >= self.traj.t_beg) & (self.t <= self.traj.t_end - 1e-9)
+        win = pairing.build_window(self.t[m], self.x[m], self.y[m], self.pol[m],
+                                   self.camera.width, self.traj.locate,
+                                   self.cfg.event_batch_size)
+        dev = model.DeviceWindow.from_window(win, self.bearing_lut, self.camera.width,
+                                             self.dtype, self.device, pad_multiple=chunk)
+        z = torch.zeros((height, W), dtype=self.dtype, device=self.device)
+        k = torch.as_tensor(self.traj.knots).to(self.device, self.dtype)
+        if num_iters is None:
+            num_iters = 3 if mcfg.use_irls else 1
+        gx, gy, costs = model.solve_map_only(k, z, z.clone(), dev, mcfg, num_iters=num_iters)
+        return _host(gx), _host(gy), costs
+
+    def _write_super_res(self, height: int):
+        """The super-resolution outputs in final_results: Gx_sr.bin,
+        Gy_sr.bin, G_hsv_sr.png, poisson_sr.png (reconstructed on the
+        pipeline's device) and super_res.json (height, width, data
+        costs), the reference's files."""
+        gx, gy, costs = self.solve_super_res_map(height)
+        fr = os.path.join(self.result_dir, "final_results")
+        eio.save_map_bin(os.path.join(fr, "Gx_sr.bin"), os.path.join(fr, "Gy_sr.bin"),
+                         gx, gy)
+        eio.save_png(os.path.join(fr, "G_hsv_sr.png"), eio.gradient_hsv_image(gx, gy))
+        eio.save_png(os.path.join(fr, "poisson_sr.png"), self._brightness(gx, gy))
+        with open(os.path.join(fr, "super_res.json"), "w") as f:
+            json.dump({"height": height, "width": gx.shape[1], "data_costs": costs}, f,
+                      indent=2)
 
     def _log(self, line: str):
         if self._iter_log is not None:
@@ -761,7 +837,7 @@ class EmbaPipeline:
         """A multi-start window: the four (sample_mode x coarse-to-fine)
         variants of :data:`MULTI_START`, each from the window's start, and
         the one with the lowest data cost under the reference model
-        (``sample_mode="curr"``, light linearization) kept: a selection
+        (``sample_mode="curr"``, :func:`data_cost_at`) kept: a selection
         without ground truth. Variants run without per-iteration callbacks
         and mid-window checkpoints (window-boundary checkpoints still
         cover the run). The window's LMStats are the winner's records with
@@ -780,9 +856,7 @@ class EmbaPipeline:
             out = self._solve(win_id, num_events, k0, dev, vcfg, lm, first_window,
                               None, variant=True)
             kv, gxv, gyv, stv, _ = out
-            lin = model.linearize(kv, gxv, gyv, dev, eval_cfg, need_deriv=False)
-            cost = float(model.data_cost(lin.e, eval_cfg))
-            del lin
+            cost = data_cost_at(kv, gxv, gyv, dev, eval_cfg)
             sel = sm + ("+c2f" if c2f else "")
             self._log(f"win {win_id} multi-start {sel}: data cost {cost}")
             every += coarse + [stv]
@@ -857,6 +931,8 @@ class EmbaPipeline:
                 use_cg=cfg.use_cg, callback=None if variant else cb, checkpoint_cb=ck_cb,
                 checkpoint_every=ck_every, resume_state=resume_lm,
             )
+            # the window's events, not its padded length (a streamed window)
+            stats.num_events = num_events
             last = stats.iterations[-1] if stats.iterations else None
             final_cost = min(last["cost_min"], last["cost_new"]) if last else 0.0
         stats.lm_mode = ("fused" if fused else "host") + (

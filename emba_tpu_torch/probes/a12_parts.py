@@ -80,6 +80,33 @@ def forming_inputs(w):
     return args, r_pad, knots.shape[0], cfg.spline_order
 
 
+def streamed_forming_inputs(w):
+    """The inputs of each ``a12_accumulate`` call of a streamed window's
+    first forming pass (``w`` as for :func:`forming_inputs`, its ``cfg``
+    with ``stream_chunk``; FULL or LIGHT tier): the chunk recompute at the
+    start state and the rows and weights ``form_normal_eq_streamed`` gives
+    the kernel, one list of nine a chunk. Returns (chunks, num_pix, knots,
+    order); the pass chains the calls through ``carry``."""
+    knots, Gx, Gy = w["start"]
+    cfg, dev = w["cfg"], w["dev"]
+    pb, pbid = M.prev_records(dev)
+    if cfg.stream_light:
+        lin, _ = M.linearize_streamed_light(knots, Gx, Gy, dev, cfg, pb, pbid)
+        nem = lin.num_ev_map
+        bounds, pieces = M._make_stream_chunk_fn_light(lin, knots, Gx, Gy, dev, cfg, pb,
+                                                       pbid)
+    else:
+        _, nem = M.cost_and_activity_streamed(knots, Gx, Gy, dev, cfg, pb, pbid)
+        bounds, pieces = M._make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, True, pb, pbid)
+    active, r_pad, pix2row, _ = M._row_space(nem, cfg)
+    chunks = []
+    for lo, hi in bounds:
+        e, inl, pmp, ic, ip, dx, dy, Jc, Jp = pieces(lo, hi)
+        rows, wA, _ = M._rows_and_weights(e, inl, pmp, active, pix2row, r_pad, cfg, e.dtype)
+        chunks.append([rows, ic, ip, Jc, Jp, dx, dy, e, wA])
+    return chunks, r_pad, knots.shape[0], cfg.spline_order
+
+
 def run(device) -> list[dict]:
     """Every case timed first, then every case profiled: no clock runs
     after the profiler has been started in the process."""

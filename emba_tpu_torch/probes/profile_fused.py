@@ -66,12 +66,13 @@ def bench_scene(pano_height=512):
     return scene, traj0, sensor
 
 
-def bench_window(scene, traj0, sensor, n, device, compact_cap=None):
+def bench_window(scene, traj0, sensor, n, device, compact_cap=None, pad_multiple=1):
     """The first ``n`` events of a :func:`bench_scene` on ``device`` in f32,
     with the bench's model (thres_valid_pixel 3, alpha 0.5, outlier cut 3
-    px; ``compact_cap`` if given). Returns a dict with ``scene``,
-    ``traj0``, ``n`` (events used), ``cfg``, ``dev`` (the DeviceWindow)
-    and ``start`` (knots, Gx, Gy tensors)."""
+    px; ``compact_cap`` if given), the window padded to ``pad_multiple``.
+    Returns a dict with ``scene``, ``traj0``, ``sensor``, ``n`` (events
+    used), ``cfg``, ``win`` (the host EventWindow), ``dev`` (the
+    DeviceWindow) and ``start`` (knots, Gx, Gy tensors)."""
     n = min(len(scene.t), n)
     H, W = scene.gx.shape
     cfg = M.ModelConfig(c_th=0.1, pano_width=W, pano_height=H, thres_valid_pixel=3,
@@ -79,10 +80,11 @@ def bench_window(scene, traj0, sensor, n, device, compact_cap=None):
     win = build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
                        sensor.width, traj0.locate, 100)
     dev = M.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
-                                     torch.float32, device)
+                                     torch.float32, device, pad_multiple=pad_multiple)
     start = tuple(torch.as_tensor(a).to(device=device, dtype=torch.float32)
                   for a in (traj0.knots, scene.gx, scene.gy))
-    return dict(scene=scene, traj0=traj0, n=n, cfg=cfg, dev=dev, start=start)
+    return dict(scene=scene, traj0=traj0, sensor=sensor, n=n, cfg=cfg, win=win, dev=dev,
+                start=start)
 
 
 def main_window(device):

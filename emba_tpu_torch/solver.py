@@ -1,5 +1,5 @@
 """Levenberg-Marquardt loops for one time window (counterpart of
-``emba_tpu/solver.py``, classic mode).
+``emba_tpu/solver.py``: classic, light-trial and streamed windows).
 
 * :func:`solve_window`: the host-driven loop. Same control flow as the
   reference: lambda schedule and convergence from :class:`lm.HostSchedule`,
@@ -13,6 +13,13 @@
 * :func:`solve_window_fused`: the whole window through :func:`lm.lm_while`
   (eager on the CPU) or a cached :class:`lm.GraphedLoop` (CUDA graphs on
   the card), with no per-phase timers.
+
+With ``cfg.stream_chunk`` both loops stream: the objective is
+:func:`model.cost_and_activity_streamed` (FULL tier) or
+:func:`model.linearize_streamed_light` (LIGHT tier, ``stream_light``), the
+forming pass :func:`model.form_normal_eq_streamed`, and the prev-event
+records (:func:`model.prev_records`) are gathered once a window and handed
+to every pass.
 """
 
 from __future__ import annotations
@@ -113,15 +120,49 @@ def _init_costs_trial(knots, Gx, Gy, dev, cfg):
     return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
 
 
-def _objective_fn(cfg):
+def _init_costs_streamed(knots, Gx, Gy, dev, cfg, pb, pbid):
+    """The FULL streamed tier's objective: the (HW,) inlier count map and
+    the costs, chunk by chunk, with no event-sized output; ``pb`` and
+    ``pbid`` are the window's prev records (:func:`model.prev_records`)."""
+    cost_data, nem = M.cost_and_activity_streamed(knots, Gx, Gy, dev, cfg, pb, pbid)
+    return nem, cost_data, M.reg_cost(Gx, Gy, cfg.alpha)
+
+
+def _init_costs_light(knots, Gx, Gy, dev, cfg, pb, pbid):
+    """The LIGHT streamed tier's objective: the light linearization,
+    computed chunk by chunk, and the costs."""
+    lin, cost_data = M.linearize_streamed_light(knots, Gx, Gy, dev, cfg, pb, pbid)
+    return lin, cost_data, M.reg_cost(Gx, Gy, cfg.alpha)
+
+
+def _objective_fn(cfg, prev=None):
+    """The objective of the window's mode, ``(knots, Gx, Gy, dev, cfg) ->
+    (aux, cost_data, cost_reg)``; a streamed one reads the prev records
+    ``prev``."""
+    if cfg.stream_chunk is not None:
+        base = _init_costs_light if cfg.stream_light else _init_costs_streamed
+
+        def streamed(knots, Gx, Gy, dev, cfg_):
+            return base(knots, Gx, Gy, dev, cfg_, *prev)
+        return streamed
     return _init_costs_trial if cfg.light_trial else _init_costs
 
 
-def _form(lin, knots, Gx, Gy, dev, cfg, num_knots):
-    """The forming pass of either mode (light: Jacobians recomputed)."""
+def _form(aux, knots, Gx, Gy, dev, cfg, num_knots, prev=None):
+    """The forming pass of the window's mode (light trial: Jacobians
+    recomputed; streamed: the whole chunk chain, or its Jacobians in the
+    LIGHT tier)."""
+    if cfg.stream_chunk is not None:
+        return M.form_normal_eq_streamed(aux, knots, Gx, Gy, dev, cfg, num_knots,
+                                         prev_bearings=prev[0], prev_bids=prev[1])
     if cfg.light_trial:
-        return M.form_normal_eq_light(lin, knots, Gx, Gy, dev, cfg, num_knots)
-    return M.form_normal_eq(lin, Gx, Gy, cfg, num_knots)
+        return M.form_normal_eq_light(aux, knots, Gx, Gy, dev, cfg, num_knots)
+    return M.form_normal_eq(aux, Gx, Gy, cfg, num_knots)
+
+
+def _prev(dev_win, cfg):
+    """The window's prev records when it streams, else None."""
+    return M.prev_records(dev_win) if cfg.stream_chunk is not None else None
 
 
 def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
@@ -214,8 +255,9 @@ def solve_window(
         sched.it = resume_state["it"]
         sched.cost_decreased = resume_state["cost_decreased"]
 
-    init_costs = _objective_fn(cfg)
     t_loop0 = time.perf_counter()
+    prev = _prev(dev_win, cfg)
+    init_costs = _objective_fn(cfg, prev)
     lin, cost_data_t, cost_reg_t = init_costs(knots, Gx, Gy, dev_win, cfg)
     cost_data, cost_reg = float(cost_data_t), float(cost_reg_t)
     stats.time_objective_s += time.perf_counter() - t_loop0
@@ -233,7 +275,7 @@ def solve_window(
         # last step was a reject: forming is deterministic in the state
         if sched.cost_decreased or neq is None:
             t0 = time.perf_counter()
-            neq = _form(lin, knots, Gx, Gy, dev_win, cfg, num_knots)
+            neq = _form(lin, knots, Gx, Gy, dev_win, cfg, num_knots, prev)
             dropped = int(neq.dropped)
             _sync(device)
             stats.time_form_s += time.perf_counter() - t0
@@ -292,19 +334,19 @@ def solve_window(
 
 
 def _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                   early_exit, cg_rec):
-    """The callables of :func:`lm.lm_while` for one window. With
-    ``use_cg``, each solve writes its CG iterations and relative residual
-    into ``cg_rec`` (2,)."""
+                   early_exit, cg_rec, prev=None):
+    """The callables of :func:`lm.lm_while` for one window (``prev``: its
+    prev records when it streams). With ``use_cg``, each solve writes its
+    CG iterations and relative residual into ``cg_rec`` (2,)."""
 
-    init_costs = _objective_fn(cfg)
+    init_costs = _objective_fn(cfg, prev)
 
     def objective(knots_, gx_, gy_):
         lin, cost_data, cost_reg = init_costs(knots_, gx_, gy_, dev_win, cfg)
         return cost_data + cost_reg, lin
 
     def form(lin, knots_, gx_, gy_):
-        return _form(lin, knots_, gx_, gy_, dev_win, cfg, num_knots)
+        return _form(lin, knots_, gx_, gy_, dev_win, cfg, num_knots, prev)
 
     def solve_update(neq, knots_, gx_, gy_, lam):
         knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(
@@ -328,7 +370,8 @@ _GRAPHED: dict = {}
 def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
                     fix_first, use_cg, max_num_iter, num_times_tol_fun_sat):
     """The cached (:class:`lm.GraphedLoop`, CG record) of this call's key,
-    with ``dev_win`` loaded into the window its graphs read."""
+    with ``dev_win`` loaded into the window its graphs read (and, for a
+    streamed window, its prev records gathered into theirs)."""
     tensors = {f.name: getattr(dev_win, f.name) for f in dataclasses.fields(dev_win)
                if getattr(dev_win, f.name) is not None}
     key = (tuple((name, tuple(t.shape), t.dtype) for name, t in tensors.items()),
@@ -336,20 +379,25 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
            tol_fun, fix_first, use_cg, max_num_iter, num_times_tol_fun_sat)
     hit = _GRAPHED.get(key)
     if hit is not None:
-        win, cg_rec, loop = hit
+        win, prev, cg_rec, loop = hit
         for name, t in tensors.items():
             getattr(win, name).copy_(t)
+        if prev is not None:
+            for buf, t in zip(prev, M.prev_records(win)):
+                buf.copy_(t)
         return loop, cg_rec
     _GRAPHED.clear()
     torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
-    win =dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
+    win = dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
+    prev = _prev(win, cfg)
     cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
     loop = lm_mod.GraphedLoop(
         knots, Gx, Gy,
-        **_window_phases(win, cfg, num_knots, damping, fix_first, use_cg, False, cg_rec),
+        **_window_phases(win, cfg, num_knots, damping, fix_first, use_cg, False, cg_rec,
+                         prev),
         tol_fun=tol_fun, max_num_iter=max_num_iter,
         num_times_tol_fun_sat=num_times_tol_fun_sat)
-    _GRAPHED[key] = (win, cg_rec, loop)
+    _GRAPHED[key] = (win, prev, cg_rec, loop)
     return loop, cg_rec
 
 
@@ -369,13 +417,17 @@ def solve_window_fused(
     stats: lm_mod.LoopStats | None = None,
 ):
     """The whole LM window as one loop over device state (counterpart of
-    ``emba_tpu.solver.solve_window_fused``, classic mode): the control flow
-    of :func:`solve_window` with the schedule held in device tensors, and
-    the reference's fixed schedule constants (``lm.LAMBDA_*``).
+    ``emba_tpu.solver.solve_window_fused``): the control flow of
+    :func:`solve_window` with the schedule held in device tensors, and the
+    reference's fixed schedule constants (``lm.LAMBDA_*``).
 
-    On the CPU it runs :func:`lm.lm_while` eagerly. On CUDA it runs an
-    :class:`lm.GraphedLoop`: each phase is captured once in a CUDA graph
-    and replayed; a capture that fails raises. The loop is kept for the next
+    On the CPU it runs :func:`lm.lm_while` eagerly; a FULL-tier streamed
+    window runs it with ``carry_aux``, as the reference's fused loop does
+    (a forming pass each iteration). On CUDA it runs an
+    :class:`lm.GraphedLoop` (in the streamed tiers too, forming after
+    accepts only): each phase is captured once in a CUDA graph and
+    replayed; a capture that fails raises. Both take the host loop's
+    steps. The loop is kept for the next
     call with the same window shapes and settings, which then pays no
     warm-up and no capture (``stats.setup_s`` is 0). ``stats``, if given,
     receives the loop wall time, the forming passes and replays, and with
@@ -396,10 +448,12 @@ def solve_window_fused(
     else:
         cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
         phases = _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                                True, cg_rec)
+                                True, cg_rec, _prev(dev_win, cfg))
+        carry_aux = cfg.stream_chunk is not None and not cfg.stream_light
 
         def run(knots, Gx, Gy, **kw):
-            return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched, **kw)
+            return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched, carry_aux=carry_aux,
+                                   **kw)
 
     def on_step():
         it, err = cg_rec.tolist()

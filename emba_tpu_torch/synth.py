@@ -99,7 +99,10 @@ def generate(
         brightness = smooth_random_map(H, W, rng, smooth=max(5, H // 16))
     gx, gy = sobel_gradients_np(brightness)
 
-    tt = np.linspace(t_beg, t_end, 200)
+    # 200 samples of the motion, the reference's; a span past ~5 s gets more,
+    # so that each knot interval the spline fit takes holds two or more
+    # (spacing under dt_knots / 2), where the reference's fit would fail
+    tt = np.linspace(t_beg, t_end, max(200, int(2 * (t_end - t_beg) / dt_knots) + 2))
     f = rng.uniform(0.5, 1.5, size=3)
     ph = rng.uniform(0, 2 * np.pi, size=3)
     amp = motion_amp * rng.uniform(0.5, 1.0, size=3)

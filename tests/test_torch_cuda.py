@@ -428,3 +428,80 @@ def test_cuda_pipeline_two_windows_matches_cpu_f64(cuda_device, tmp_path, fused)
         assert all(st.setup_s > 0 for st in res.window_stats)
     assert np.max(np.abs(res.trajectory.knots - ref.trajectory.knots)) <= 1e-4
     assert np.isfinite(res.gx).all() and np.isfinite(res.gy).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("light", [False, True])
+def test_cuda_streamed_window_follows_host_loop(cuda_device, light):
+    """A streamed window (chunks of 2^16 events on a window padded to a
+    multiple) on the card, fused and through the host loop, and the
+    classic window on the card, against the classic window in f64 on the
+    CPU: the same steps, each final cost within 1e-3 of the f64 one (f32
+    against f64, as chip_smoke.py's reference check; the chunked and the
+    one-pass f32 sums round in other orders, which the LM steps carry into
+    the cost), the two streamed loops within 1e-5 of each other, A12
+    launches = forming passes x chunks; the map-only step twice within
+    model.MAP_ONLY_REPEAT_REL_TOL."""
+    sensor = synth.default_sensor(48, 48, f=44.0)
+    rng = np.random.default_rng(42)
+    B = synth.smooth_random_map(96, 192, rng, smooth=3, amp=3.0)
+    scene = synth.generate(rng, sensor, pano_width=192, pano_height=96, c_th=0.1,
+                           t_end=1.0, dt_knots=0.05, num_steps=600, motion_amp=0.25,
+                           brightness=B)
+    cfg = TM.ModelConfig(c_th=0.1, pano_width=192, pano_height=96,
+                         thres_valid_pixel=3, alpha=0.5, outlier_dp_norm=3.0)
+    chunk = 1 << 16
+    scfg = dataclasses.replace(cfg, stream_chunk=chunk, stream_light=light)
+    steps = np.random.default_rng(7).normal(size=(scene.traj.num_knots, 3)) * 0.015
+    walk = np.cumsum(steps, axis=0)
+    walk -= walk[0]
+    traj0 = dataclasses.replace(scene.traj, knots=spline._np_exp(walk) @ scene.traj.knots)
+    win = build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width, traj0.locate,
+                       100)
+    dev = TM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                      torch.float32, cuda_device, pad_multiple=chunk)
+    chunks = len(TM.stream_bounds(dev.pol_signed.shape[0], chunk))
+    assert chunks > 1
+    start = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+             for a in (traj0.knots, scene.gx, scene.gy)]
+    lmc = solver.LMConfig(max_num_iter=8, tol_fun=0.0)
+    dev64 = TM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                        torch.float64, "cpu")
+    ref = solver.solve_window(*[torch.as_tensor(a, dtype=torch.float64) for a in (
+        traj0.knots, scene.gx, scene.gy)], dev64, cfg, lmc, fix_first=True)[3]
+    classic = solver.solve_window(*start, dev, cfg, lmc, fix_first=True)[3]
+    kernels.reset_launch_counts()
+    _k, _gx, _gy, st = solver.solve_window(*start, dev, scfg, lmc, fix_first=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["a12_accum"] == st.count_form * chunks
+
+    def accepts(s):
+        return [r["cost_new"] < r["cost_min"] for r in s.iterations]
+
+    def final(s):
+        return min([r["cost_min"] for r in s.iterations]
+                   + [r["cost_new"] for r in s.iterations])
+
+    assert accepts(st) == accepts(classic) == accepts(ref)
+    for run in (st, classic):
+        assert abs(final(run) - final(ref)) <= 1e-3 * abs(final(ref))
+    stats = lm.LoopStats()
+    kernels.reset_launch_counts()
+    k, gx, gy, cost, it, conv, trace = solver.solve_window_fused(
+        *start, dev, scfg, 1.0, 0.0, fix_first=True, max_num_iter=8, return_trace=True,
+        stats=stats)
+    torch.cuda.synchronize()
+    recs = lm.trace_records(trace.double().cpu().numpy(), int(it))
+    assert [r["accepted"] for r in recs] == accepts(st)
+    assert abs(float(cost) - final(st)) <= 1e-5 * abs(final(st))
+    assert kernels.launch_counts()["a12_accum"] == stats.form_passes * chunks
+    assert stats.replays["form"] == st.count_form
+    assert all(torch.isfinite(t).all() for t in (k, gx, gy))
+
+    z = torch.zeros_like(start[1])
+    a = TM.solve_map_only(start[0], z, z, dev, scfg)
+    b = TM.solve_map_only(start[0], z, z, dev, scfg)
+    assert a[2][1] < a[2][0]
+    for x, y in zip(a[:2], b[:2]):
+        assert float((x - y).abs().max()) <= TM.MAP_ONLY_REPEAT_REL_TOL * float(
+            y.abs().max())

@@ -57,19 +57,20 @@ def scripted(xp, script, cost0):
     return objective, form, solve_update
 
 
-def run_jax(script=SCRIPT, max_num_iter=20, **tol):
+def run_jax(script=SCRIPT, max_num_iter=20, carry_aux=False, **tol):
     obj, form, upd = scripted(jnp, jnp.asarray(script), COST0)
     z = jnp.zeros(1)
     out = JL.lm_while(z, z, z, objective=obj, form=form, solve_update=upd,
-                      max_num_iter=max_num_iter, **(tol or TOL))
+                      max_num_iter=max_num_iter, carry_aux=carry_aux, **(tol or TOL))
     return [np.asarray(x) for x in out]
 
 
-def run_port(loop=TL.lm_while, script=SCRIPT, max_num_iter=20, stats=None, **tol):
+def run_port(loop=TL.lm_while, script=SCRIPT, max_num_iter=20, stats=None, **kw):
     obj, form, upd = scripted(torch, torch.tensor(script, dtype=torch.float64), COST0)
     z = torch.zeros(1, dtype=torch.float64)
+    tol = {k: kw.pop(k) for k in list(kw) if k in TOL}
     out = loop(z, z.clone(), z.clone(), objective=obj, form=form, solve_update=upd,
-               max_num_iter=max_num_iter, stats=stats, **(tol or TOL))
+               max_num_iter=max_num_iter, stats=stats, **(tol or TOL), **kw)
     return [x.numpy() for x in out]
 
 
@@ -98,15 +99,25 @@ def test_lm_while_stops_at_max_num_iter_like_jax(max_num_iter):
     assert int(got[4]) == max_num_iter + 1 and not bool(got[5])
 
 
-def test_lm_while_counts_forming_passes_and_refuses_carry_aux():
+def test_lm_while_counts_forming_passes_and_carries_aux():
+    """Classic mode forms at the start and after each accept the loop goes
+    on from; with ``carry_aux`` (the FULL streamed tier's eager loop) it
+    carries the forming input and forms at the top of every iteration, and
+    its results and trace equal JAX's ``lm_while(carry_aux=True)``, whose
+    loop forms once an iteration."""
     stats = TL.LoopStats()
     run_port(stats=stats)
     # the start, then each accept the loop goes on from (4 of the 5)
     assert stats.form_passes == 5 and stats.loop_s > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.lm_while(None, None, None, objective=None, form=None, solve_update=None,
-                    tol_fun=0.1, max_num_iter=1, num_times_tol_fun_sat=2,
-                    carry_aux=True)
+    want = run_jax(carry_aux=True)
+    carried = TL.LoopStats()
+    got = run_port(stats=carried, carry_aux=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert carried.form_passes == int(want[4]) == 7
+    # the carried aux is the accepted state's: the same steps as classic
+    for g, w in zip(got, run_port()):
+        np.testing.assert_array_equal(g, w)
 
 
 def copy_into(dst, src):

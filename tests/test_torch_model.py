@@ -184,28 +184,38 @@ def test_cg_solve_without_host_reads_gives_the_same_bits(case):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("field", ["stream_chunk", "stream_light"])
-def test_unported_config_fields_raise(field):
-    value = 1024 if field == "stream_chunk" else True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.ModelConfig(**CFG, **{field: value})
+CONFIG_FIELDS = {"compact_cap": dict(compact_cap=1024),
+                 "light_trial": dict(light_trial=True),
+                 "stream_chunk": dict(stream_chunk=1024),
+                 "stream_light": dict(stream_chunk=1024, stream_light=True)}
 
 
-@pytest.mark.parametrize("field", ["compact_cap", "light_trial"])
+@pytest.mark.parametrize("field", list(CONFIG_FIELDS))
 def test_ported_config_fields_form_like_jax(case, field):
-    """``compact_cap`` and ``light_trial`` construct, and the forming pass
-    they select gives JAX's normal equations at the same configuration (a
-    cap above the active count; the light linearization then its forming
+    """``compact_cap``, ``light_trial``, ``stream_chunk`` and
+    ``stream_light`` construct, and the forming pass they select gives
+    JAX's normal equations at the same configuration (a cap above the
+    active count; the light linearization then its forming pass; the FULL
+    and LIGHT streamed tiers' objective then their chunked forming
     pass)."""
-    value = 1024 if field == "compact_cap" else True
-    jc, tc = JM.ModelConfig(**CFG, **{field: value}), TM.ModelConfig(**CFG, **{field: value})
+    kw = CONFIG_FIELDS[field]
+    jc, tc = JM.ModelConfig(**CFG, **kw), TM.ModelConfig(**CFG, **kw)
     k = case["num_knots"]
     jk, jgx, jgy = (jnp.asarray(a) for a in case["state"])
     tk, tgx, tgy = convert.state_from_numpy(*case["state"], torch.float64, "cpu")
-    light = field == "light_trial"
-    jl = JM.linearize(jk, jgx, jgy, case["jdev"], jc, not light)
-    tl = TM.linearize(tk, tgx, tgy, case["tdev"], tc, need_deriv=not light)
-    if light:
+    if tc.stream_light:
+        jl, _ = JM.linearize_streamed_light(jk, jgx, jgy, case["jdev"], jc)
+        tl, _ = TM.linearize_streamed_light(tk, tgx, tgy, case["tdev"], tc)
+    elif tc.stream_chunk is not None:
+        jl = JM.cost_and_activity_streamed(jk, jgx, jgy, case["jdev"], jc)[1]
+        tl = TM.cost_and_activity_streamed(tk, tgx, tgy, case["tdev"], tc)[1]
+    else:
+        jl = JM.linearize(jk, jgx, jgy, case["jdev"], jc, not tc.light_trial)
+        tl = TM.linearize(tk, tgx, tgy, case["tdev"], tc, need_deriv=not tc.light_trial)
+    if tc.stream_chunk is not None:
+        jn = JM.form_normal_eq_streamed(jl, jk, jgx, jgy, case["jdev"], jc, k)
+        tn = TM.form_normal_eq_streamed(tl, tk, tgx, tgy, case["tdev"], tc, k)
+    elif tc.light_trial:
         jn = JM.form_normal_eq_light(jl, jk, jgx, jgy, case["jdev"], jc, k)
         tn = TM.form_normal_eq_light(tl, tk, tgx, tgy, case["tdev"], tc, k)
     else:

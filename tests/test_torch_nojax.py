@@ -1,9 +1,11 @@
 """The port runs without JAX: a fresh interpreter imports emba_tpu_torch
-and its kernel, probe and application modules, solves a tiny window on the
-CPU through the host loop and the fused loop, runs the CLI's ``synth`` and
-``run --device cpu`` on a tiny scene and one multi-start row of the
-accuracy suite (``eval_suite``, with ``poses`` and ``viz`` imported), and
-must have loaded neither ``jax`` nor the JAX package ``emba_tpu``."""
+and its kernel, probe and application modules and ``chip_smoke.py``,
+solves a tiny window on the CPU through the host loop and the fused loop,
+classic and in both streamed tiers, runs the map-only solve, the CLI's
+``synth`` and ``run --device cpu`` on a tiny scene (streamed, with the
+super-resolution map) and one streamed multi-start row of the accuracy
+suite (``eval_suite``, with ``poses`` and ``viz`` imported), and must have
+loaded neither ``jax`` nor the JAX package ``emba_tpu``."""
 
 import os
 import subprocess
@@ -35,9 +37,20 @@ out = solver.solve_window_fused(
     torch.from_numpy(scene.traj.knots), torch.from_numpy(scene.gx),
     torch.from_numpy(scene.gy), dev, cfg, 1.0, 1e-3, use_cg=True, max_num_iter=1)
 assert torch.isfinite(out[0]).all()
+for light in (False, True):
+    scfg = M.ModelConfig(c_th=0.2, pano_width=64, pano_height=32, thres_valid_pixel=2,
+                         stream_chunk=500, stream_light=light)
+    out = solver.solve_window_fused(
+        torch.from_numpy(scene.traj.knots), torch.from_numpy(scene.gx),
+        torch.from_numpy(scene.gy), dev, scfg, 1.0, 1e-3, max_num_iter=1)
+    assert torch.isfinite(out[0]).all()
+z = torch.zeros_like(torch.from_numpy(scene.gx))
+gx_m, gy_m, costs = M.solve_map_only(torch.from_numpy(scene.traj.knots), z, z, dev, scfg)
+assert torch.isfinite(gx_m).all() and costs[-1] < costs[0]
 from emba_tpu_torch import convert, lm
 from emba_tpu_torch.kernels import gather_sum
-from emba_tpu_torch.probes import gather_probe, profile_fused
+from emba_tpu_torch.probes import gather_probe, profile_fused, suite_run
+import chip_smoke
 payload = torch.ones((2, 300))
 idx = torch.zeros((2, gather_sum.MC), dtype=torch.int32)
 assert gather_sum.gather_sum(payload, idx, True).tolist() == [[512.0], [512.0]]
@@ -52,12 +65,15 @@ with tempfile.TemporaryDirectory() as d:
                     "--map-gx", os.path.join(d, "Gx.bin"),
                     "--map-gy", os.path.join(d, "Gy.bin"), "--out", os.path.join(d, "r"),
                     "--start-time", "0.02", "--stop-time", "0.28", "--c-th", "0.2",
-                    "--max-num-iter", "1", "--thres-valid-pixel", "2", "--device", "cpu"])
+                    "--max-num-iter", "1", "--thres-valid-pixel", "2", "--device", "cpu",
+                    "--stream-chunk", "1000", "--super-res-height", "48"])
     assert len(res.window_stats) == 1 and np.isfinite(res.trajectory.knots).all()
-    assert os.path.exists(os.path.join(d, "r", "final_results", "runtime.json"))
+    assert res.model_config.stream_chunk == 1000
+    for f in ("runtime.json", "Gx_sr.bin", "super_res.json"):
+        assert os.path.exists(os.path.join(d, "r", "final_results", f)), f
 from emba_tpu_torch import eval_suite, poses, viz
 row = eval_suite.run_sequence("tiny", 3, 0.25, 2, 3.0, 0.3, sensor=16, pano_height=32,
-                              max_iter=1, multi_start=True, device="cpu")
+                              max_iter=1, multi_start=True, stream=True, device="cpu")
 assert row["selected_variant"] in ("curr", "mid", "curr+c2f", "mid+c2f")
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "emba_tpu") or m.startswith(("jax.", "jaxlib", "emba_tpu.")))

@@ -3,8 +3,9 @@ the CPU in f64, on the tiny scene of ``tests/test_pipeline.py`` (40x40
 sensor, 128x64 panorama, 0.6 s, made by the CLI's ``synth`` from seed 0):
 one whole-span window and two sliding windows, each fused and through the
 host loop; checkpoints and resume within the port and across packages;
-the CLI end to end; the options that are not ported yet; the fused-cap
-fallback.
+the CLI end to end; the streamed tiers, a window streamed by the plan
+above the classic cap and the super-resolution map; the option that is
+not ported yet; the fused-cap fallback.
 
 Tolerances: against JAX the same window count, knot count, iterations per
 window, active pixels per forming pass and LM mode, and knots and maps to
@@ -91,7 +92,9 @@ def jax_runs(dataset):
             for case, kw in CASES.items() for mode in ("fused", "host")}
 
 
-def assert_runs_match(t, j):
+def assert_runs_match(t, j, padded=False):
+    """``padded``: a streamed host-loop window, whose event count JAX takes
+    from its padded length; the port counts the window's events."""
     assert len(t.window_stats) == len(j.window_stats)
     assert t.trajectory.num_knots == j.trajectory.num_knots
     for ts, js in zip(t.window_stats, j.window_stats):
@@ -99,7 +102,11 @@ def assert_runs_match(t, j):
         assert ts.active_px_per_form == js.active_px_per_form
         assert ts.dropped_meas_per_form == js.dropped_meas_per_form
         assert ts.lm_mode == js.lm_mode
-        assert ts.num_events == js.num_events
+        if padded:
+            chunk = t.model_config.stream_chunk
+            assert js.num_events == -(-ts.num_events // chunk) * chunk
+        else:
+            assert ts.num_events == js.num_events
         assert [r["cost_new"] < r["cost_min"] for r in ts.iterations] == [
             r["cost_new"] < r["cost_min"] for r in js.iterations]
     assert rel_err(t.trajectory.knots, j.trajectory.knots) <= REL
@@ -276,9 +283,6 @@ def test_resume_from_jax_checkpoint(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("stream_chunk", 1 << 20, "item 11"),
-    ("stream_light", True, "item 11"),
-    ("super_res_height", 128, "item 11"),
     ("num_devices", 2, "item 14"),
 ])
 def test_unported_options_raise(dataset, option, value, item):
@@ -286,6 +290,86 @@ def test_unported_options_raise(dataset, option, value, item):
     setattr(cfg, option, value)
     with pytest.raises(NotImplementedError, match=item):
         port_pipe(dataset, cfg).run()
+
+
+STREAMED = {
+    "stream_chunk": (dict(stream_chunk=4096), "fused"),
+    "stream_light": (dict(stream_chunk=4096, stream_light=True), "host"),
+    "super_res_height": (dict(super_res_height=128), "host"),
+}
+
+
+@pytest.mark.parametrize("option", list(STREAMED))
+def test_streaming_options_match_jax(dataset, tmp_path, option):
+    """The streamed tiers (FULL fused, LIGHT through the host loop) and the
+    super-resolution map run and give JAX's run; the super-resolution run
+    writes JAX's files, its maps and costs to relative 1e-8."""
+    kw, mode = STREAMED[option]
+    runs = []
+    for C, make in ((TC, port_pipe), (JC, jax_pipe)):
+        out = tmp_path / C.__name__.split(".")[0]
+        rec = dict(result_dir=str(out), record_data=True) if mode == "host" else {}
+        runs.append(make(dataset, C.BAConfig(**ONE, **kw, fused_lm=mode == "fused"),
+                         **rec).run())
+    assert_runs_match(*runs, padded="stream_chunk" in kw and mode == "host")
+    mcfg = runs[0].model_config
+    assert mcfg.stream_chunk == kw.get("stream_chunk")
+    assert mcfg.stream_light == bool(kw.get("stream_light"))
+    if option == "super_res_height":
+        fr = {k: tmp_path / k / "final_results" for k in ("emba_tpu_torch", "emba_tpu")}
+        t, j = ({n: tio.load_map_bin(str(f / "Gx_sr.bin"), str(f / "Gy_sr.bin"))[i]
+                 for i, n in enumerate("xy")} for f in fr.values())
+        assert t["x"].shape == (128, 256)
+        assert rel_err(t["x"], j["x"]) <= REL and rel_err(t["y"], j["y"]) <= REL
+        for name in ("G_hsv_sr.png", "poisson_sr.png"):
+            assert (fr["emba_tpu_torch"] / name).exists(), name
+        st, sj = (json.loads((f / "super_res.json").read_text()) for f in fr.values())
+        assert set(st) == set(sj) and st["width"] == sj["width"] == 256
+        assert rel_err(st["data_costs"], sj["data_costs"]) <= REL
+        assert st["data_costs"][-1] < st["data_costs"][0]
+
+
+def test_window_above_classic_cap_streams_like_jax(dataset, monkeypatch):
+    """A window above the classic-window cap streams by the pipeline's own
+    decision (the FULL tier, :data:`pipeline.AUTO_STREAM_CHUNK`, here set
+    to 4096 events) and gives the run of JAX's pipeline streaming at that
+    chunk, fused."""
+    plan = TP.plan_model_config
+
+    def small_caps(*a, **kw):
+        return plan(*a, **kw, classic_cap_small=1000, classic_cap_large=1000)
+
+    monkeypatch.setattr(TP, "plan_model_config", small_caps)
+    monkeypatch.setattr(TP, "AUTO_STREAM_CHUNK", 4096)
+    res = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True)).run()
+    assert res.model_config.stream_chunk == 4096 and not res.model_config.stream_light
+    assert res.window_stats[0].num_events > 1000
+    want = jax_pipe(dataset, JC.BAConfig(**ONE, fused_lm=True, stream_chunk=4096)).run()
+    assert_runs_match(res, want)
+
+
+def test_cli_streaming_flags(dataset, tmp_path, capsys):
+    """``cli run --stream-chunk --stream-light --super-res-height --device
+    cpu`` gives JAX's CLI run on the same files: the same windows, knots
+    and super-resolution map."""
+    d = dataset["dir"]
+    args = ["run", "--events", str(d / "events.npz"), "--poses", str(d / "traj_gt.txt"),
+            "--map-gx", str(d / "Gx.bin"), "--map-gy", str(d / "Gy.bin"), "--calib",
+            str(d / "calib.yaml"), "--start-time", "0.02", "--stop-time", "0.58",
+            "--c-th", "0.1", "--alpha", "0.5", "--max-num-iter", "3", "--dtype",
+            "float64", "--outlier-dp", "3.0", "--thres-valid-pixel", "3",
+            "--stream-chunk", "3000", "--stream-light", "1", "--super-res-height", "96"]
+    res = tcli.main(args + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    assert res.model_config.stream_chunk == 3000 and res.model_config.stream_light
+    jcli.main(args + ["--out", str(tmp_path / "j")])
+    capsys.readouterr()
+    fr = {k: tmp_path / k / "final_results" for k in "tj"}
+    kt, kj = (np.loadtxt(f / "trajectory_refined.txt") for f in fr.values())
+    assert rel_err(kt, kj) <= REL
+    (tx, ty), (jx, jy) = (tio.load_map_bin(str(f / "Gx_sr.bin"), str(f / "Gy_sr.bin"))
+                          for f in fr.values())
+    assert tx.shape == (96, 192)
+    assert rel_err(tx, jx) <= REL and rel_err(ty, jy) <= REL
 
 
 @pytest.mark.parametrize("option,value", [
@@ -319,13 +403,14 @@ def test_ported_options_match_jax(dataset, option, value):
             v["iterations"] + v["coarse_iterations"] for v in st.variants)
 
 
-def test_auto_compaction_and_auto_stream_raise(dataset):
+def test_auto_compaction_and_auto_stream_match_jax(dataset):
     """Where the reference turns on compaction by itself (a 2048x1024
     panorama), the port does too, with the same cap, and two windows run
     like the reference's, the cap retuned between them from the device's
     active-pixel count; where the reference would stream (a window above
-    the classic cap), the port raises; its decision equals the
-    reference's at the same inputs."""
+    the classic cap), the port streams, at the reference's chunk: its
+    decisions equal the reference's at the same inputs (mirror of
+    tests/test_pipeline.py:585), an explicit stream_chunk and tier too."""
     z = np.zeros((1024, 2048))
     kw = dict(TWO, max_num_iter=2, fused_lm=True, thres_valid_pixel=1,
               outlier_dp_norm=30.0)
@@ -350,15 +435,23 @@ def test_auto_compaction_and_auto_stream_raise(dataset):
     for beg, end, cap in ((0.0, 1.0, 700), (0.0, 1.0, 500), (0.0, 0.1, 900),
                           (0.0, 0.1, 2000)):
         args = (t, beg, end, 0.8, 0.5, 1)
-        streams = JP.plan_model_config(jm, cfg_j, *args, classic_cap_small=cap,
-                                       classic_cap_large=cap)[0].stream_chunk
-        if streams is None:
-            assert TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
-                                        classic_cap_large=cap) == (mcfg, False)
-        else:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
-                                     classic_cap_large=cap)
+        want = JP.plan_model_config(jm, cfg_j, *args, classic_cap_small=cap,
+                                    classic_cap_large=cap)[0]
+        got, auto = TP.plan_model_config(mcfg, cfg_t, *args, classic_cap_small=cap,
+                                         classic_cap_large=cap)
+        assert (got.stream_chunk, got.stream_light, auto) == (
+            want.stream_chunk, want.stream_light, False)
+        assert got.stream_chunk in (None, TP.AUTO_STREAM_CHUNK)
+    for kw in (dict(stream_chunk=1 << 10), dict(stream_chunk=1 << 10, stream_light=True),
+               dict(stream_light=True), dict(stream_chunk=0)):
+        ct, cj = TC.BAConfig(**kw), JC.BAConfig(**kw, use_pallas=False)
+        args = (t, 0.0, 1.0, 0.8, 0.5, 1)
+        got = TP.plan_model_config(ct.model_config(), ct, *args, classic_cap_small=500,
+                                   classic_cap_large=500)[0]
+        want = JP.plan_model_config(cj.model_config(), cj, *args, classic_cap_small=500,
+                                    classic_cap_large=500)[0]
+        assert (got.stream_chunk, got.stream_light) == (want.stream_chunk,
+                                                        want.stream_light), kw
     assert TP.CLASSIC_CAP_LARGE_ROWS <= TP.CLASSIC_CAP_SMALL_ROWS
 
 
@@ -449,17 +542,21 @@ def test_retune_compact_cap_matches_jax(cap, observed):
     (6_500_000, None, None), (1_000, 1 << 22, None),
 ])
 def test_plan_model_config_row_ceiling(n_events, compact_cap, rows):
-    """A 4096x2048 panorama plans a classic window in a row space up to
+    """A 4096x2048 panorama plans a window in a row space up to
     pipeline.ROWS_LARGE (2^21, the automatic cap of 4M events, or a cap
     set there); above it (a cap set at 2^22, or the 2^23 rows that 6.5M
-    events leave uncompacted) the plan raises, naming ROADMAP item 11."""
+    events leave uncompacted) the plan raises, naming A12's memory, which
+    streaming does not shrink, and the map-only super-resolution path."""
     mcfg = TC.BAConfig(pano_width=4096, pano_height=2048,
                        thres_valid_pixel=3).model_config()
     mcfg = dataclasses.replace(mcfg, compact_cap=compact_cap)
     args = (mcfg, TC.BAConfig(), np.linspace(0.0, 1.0, n_events), 0.0, 1.0, 0.8, 0.5, 1)
     if rows is None:
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="super_res_height"):
             TP.plan_model_config(*args)
+        streamed = TC.BAConfig(stream_chunk=1 << 20)
+        with pytest.raises(NotImplementedError, match="does not shrink"):
+            TP.plan_model_config(args[0], streamed, *args[2:])
     else:
         assert TP.plan_model_config(*args)[0].compact_cap == rows
 

@@ -97,16 +97,11 @@ def test_solve_window_matches(scenes):
         jmetrics.trajectory_rmse_deg(tA, tt, R_gt), rel=1e-10)
 
 
-def test_unported_solver_options_raise(scenes):
-    """The solver option still to port raises (the streamed tier's re-form
-    at the top of each iteration); ``light_trial`` (ported)
-    gives the classic loop's bits, ``use_cg`` and ``resume_state`` run,
-    and a resume from the start equals a fresh run."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.lm_while(None, None, None, objective=None, form=None, solve_update=None,
-                    tol_fun=1e-3, max_num_iter=1, num_times_tol_fun_sat=2,
-                    carry_aux=True)
-
+def test_solver_options_match_the_classic_loop(scenes):
+    """``light_trial`` gives the classic loop's bits, the streamed tiers
+    (FULL and LIGHT, chunks of 1000 events) its steps and state to 1e-10,
+    ``use_cg`` and ``resume_state`` run, and a resume from the start equals
+    a fresh run."""
     sensor, scene, _t = scenes
     win = pairing.build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width,
                                scene.traj.locate, 100)
@@ -125,6 +120,14 @@ def test_unported_solver_options_raise(scenes):
     for a, b in zip(light[:3], fresh[:3]):
         assert torch.equal(a, b)
     assert light[3].count_form == fresh[3].count_form
+    for tier in (False, True):
+        streamed = TS.solve_window(*start, dev, TM.ModelConfig(
+            **CFG, stream_chunk=1000, stream_light=tier), lmc)
+        for a, b in zip(streamed[:3], fresh[:3]):
+            assert rel_err(a, b) <= 1e-10
+        assert [r["cost_new"] < r["cost_min"] for r in streamed[3].iterations] == [
+            r["cost_new"] < r["cost_min"] for r in fresh[3].iterations]
+        assert streamed[3].count_form == fresh[3].count_form
     sched = lm.HostSchedule(tol_fun=lmc.tol_fun, max_num_iter=lmc.max_num_iter,
                             num_times_tol_fun_sat=lmc.num_times_tol_fun_sat)
     sched.start(fresh[3].iterations[0]["cost_min"])

@@ -77,7 +77,8 @@ def test_run_sequence_matches_jax(multi_start):
 def test_run_sequence_options_and_limits(capsys):
     """An odd panorama skips the coarse stage with a log line (the run then
     equals the direct run); light-trial gives the classic row; a window
-    above ``stream_over`` raises, naming the streaming item; without a GPU
+    above ``stream_over``, or with ``stream=True`` (in either tier),
+    streams and gives the unstreamed row to relative 1e-8; without a GPU
     the default device raises."""
     kw = dict(TINY, pano_height=33, dtype=torch.float64, device="cpu")
     c2f = TE.run_sequence(*ROW, **kw, coarse_to_fine=True)
@@ -88,9 +89,14 @@ def test_run_sequence_options_and_limits(capsys):
     light = TE.run_sequence(*ROW, **kw, light_trial=True)
     for k in ("rmse_refined_deg", "photometric_refined", "lm_iterations"):
         assert light[k] == direct[k]
-    for over in (dict(stream_over=1000), dict(stream=True), dict(stream_light=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TE.run_sequence(*ROW, **kw, **over)
+    assert direct["num_events"] > 1000
+    for over in (dict(stream_over=1000), dict(stream=True),
+                 dict(stream=True, stream_light=True)):
+        streamed = TE.run_sequence(*ROW, **kw, **over)
+        assert streamed["num_events"] == direct["num_events"]
+        assert streamed["lm_iterations"] == direct["lm_iterations"]
+        for k in ("rmse_refined_deg", "photometric_refined"):
+            assert streamed[k] == pytest.approx(direct[k], rel=REL, abs=1e-12), (over, k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TE.run_sequence(*ROW, **TINY)
