@@ -99,7 +99,32 @@ Phases, each reporting on its own lines:
     2^21 rows, streamed by the plan, fused and host alike; (d) ``cli run
     --super-res-height 2048`` on phase 11's scene: the four map files and
     super_res.json, the data cost falls, a second map-only step is a fixed
-    point, a second call gives the same map.
+    point, a second call gives the same map;
+14. the sharded window (``emba_tpu_torch.dist``), every rank's A12
+    launches gated against its forming passes: (a) NCCL at world size 1
+    in this process on the bench window (9 steps): the fused sharded
+    window, its CUDA graphs capturing the NCCL collectives, and the
+    host-driven sharded window, against ``solve_window_fused`` and the
+    host loop (same steps, final cost within 1e-5; the bits compared and
+    printed); (b) two ranks on the one card over gloo (tensors staged
+    through the host), the same window at full width and row space: each
+    rank's A12 kernel on its own first forming pass against its plain
+    version, the seconds of that pass's reduce-scatter, the host-driven
+    and the ``lm_while`` window against the single-device host loop, 4
+    steps each (same steps, final cost within 1e-4), each rank's peak
+    memory; (c) the
+    sharded map-only step on those ranks against ``model.solve_map_only``
+    (within 3e-5 on the pixels whose counts agree; two calls equal in
+    bits); (d) ``cli run --num-devices 2 --dist-backend gloo`` on phase
+    11's scene, fused and recording, on ranks that count their launches,
+    against phase 11's run 1 (final cost within 1e-3, rotation RMSE within
+    0.01 deg), then the two-rank run's mid-window checkpoint resumed on
+    one device; (e)
+    ``dist.dryrun``'s variants on (b)'s ranks: finite, cost falling, the
+    ranks agreeing.
+
+The kernels are built before any rank starts; a rank's failure fails the
+script.
 
 Each kernel line gives its time beside its bound, the least time the card
 could take (``a12_bound``: bytes at 3.35 TB/s or f32 operations at 67
@@ -696,7 +721,7 @@ def phase_fused(ctx):
                  f"fused {name} call: {n_launch} kernel launches != {passes} forming passes")
     _require(st.replays["form"] == host.count_form,
              f"fused: {st.replays['form']} form replays != host loop {host.count_form}")
-    return launches
+    return launches, (k, gx, gy, cost, it, conv, trace)
 
 
 def phase_resume(ctx):
@@ -937,7 +962,7 @@ def phase_pipeline(device, d):
              f"run 5: recon rel {rel:.3e} > {RECON_REL_TOL:.0e}")
     launches = {"run1": s1["a12_launches"], "run2": s2["a12_launches"],
                 "run4": s4["a12_launches"]}
-    return launches, max(c[0] for c in cases), p, (r0, r1)
+    return launches, max(c[0] for c in cases), p, (r0, r1), fused
 
 
 # ---------------------------------------------------------------------------
@@ -1786,6 +1811,278 @@ def phase_super_res(p, d):
     return sr, peak
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded window on torch.distributed.
+# ---------------------------------------------------------------------------
+
+# 14b: f32 windows whose sums run in another order than the single-device
+# window's (the ranks' partial sums are added by the collectives): the
+# final cost within COMPACT_F32_REL_TOL (any change of f32 summation order
+# moved the 9-step cost by 2.5-5.7e-5, 12d); 14a at world size 1 adds
+# nothing across ranks, so it is held to the fused window's 1e-5.
+SHARDED_F32_REL_TOL = 1e-4
+# 14c: the sharded map-only step against the single-device one, both f32 on
+# the card, relative to the map's largest magnitude, on the pixels whose
+# inlier counts agree (13a measured 3.0e-5 for f32 against f64)
+SHARDED_MAP_REL_TOL = 3e-5
+# 14d: a two-rank run of phase 11's row against its run 1, both f32 to
+# convergence (23 steps). On an NVIDIA H100 80GB HBM3 at 700 W the sound
+# runs read 2.30e-4 (two ranks) and 4.19e-4 (their checkpoint resumed on
+# one device), and a fault planted in the sharded window reads 4.3e-3 (the
+# halo fold lost; the RMSE moved 0.0005 deg), 0.10 (A12 not summed over
+# the ranks) and 0.51 (a rank's events dropped): ``python -m
+# emba_tpu_torch.probes.sharded``. The limit lies between the largest sound
+# reading and the smallest faulty one. In f64 two ranks and one device end
+# on the same cost (tests/test_torch_dist_pipeline.py holds them to 1e-8).
+SHARDED_CLI_COST_REL_TOL = 1e-3
+SHARDED_RMSE_TOL_DEG = 0.01
+SHARDED_RANKS = 2
+RANK_THREADS = 2  # torch threads a rank: two ranks share the machine's cores
+# The depth cut of phase 14 (widths stay): over gloo every forming pass
+# stages A12 (1.34 GB a rank) through the host, most of a 1.6-1.9 s step
+# on an NVIDIA H100 80GB HBM3 at 700 W (this phase's chip run), so 14b
+# runs 4 steps, against the single-device host loop of the same depth.
+SHARDED_WINDOW_ITERS = 3
+
+
+def phase_sharded_nccl(ctx, fused_single):
+    """14a: NCCL at world size 1 in this process. Returns ({path: A12
+    launches}, {loop: seconds})."""
+    import shutil
+
+    import torch
+
+    from emba_tpu_torch import dist, kernels, lm, solver
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    comm = dist.init(1, 0, "nccl", f"file://{d}/store", device=ctx["dev"].pol_signed.device)
+    try:
+        place = dist.Sharded(comm, ctx["sensor"].width * ctx["sensor"].height)
+        shard = dist.shard_window(ctx["dev"], comm)
+        solver._GRAPHED.clear()
+        torch.cuda.empty_cache()
+        loop = lm.LoopStats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = solver.solve_window_fused(
+            *ctx["start"], shard, ctx["cfg"], 1.0, 0.0, fix_first=True,
+            max_num_iter=MAIN_ITERS, return_trace=True, stats=loop, placement=place)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_f = kernels.launch_counts()["a12_accum"]
+        kernels.reset_launch_counts()
+        host = solver.solve_window(*ctx["start"], shard, ctx["cfg"], ctx["lm"],
+                                   fix_first=True, placement=place)
+        torch.cuda.synchronize()
+        launches_h = kernels.launch_counts()["a12_accum"]
+    finally:
+        dist.destroy()
+        solver._GRAPHED.clear()
+        torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+    k, gx, gy, cost, it, conv, trace = out
+    single = ctx["host"]
+    same_fused = all(torch.equal(a, b) for a, b in zip(out, fused_single))
+    same_host = all(torch.equal(a, b) for a, b in zip(host[:3], single[:3]))
+    recs = lm.trace_records(trace.cpu().double().numpy(), int(it))
+    acc_f = "".join("A" if r["accepted"] else "r" for r in recs)
+    single_cost = _final_cost(single[3])
+    rel_f = abs(float(cost) - float(fused_single[3])) / abs(float(fused_single[3]))
+    rel_h = abs(_final_cost(host[3]) - single_cost) / abs(single_cost)
+    print(f"sharded 14a (nccl, world 1, {ctx['n']} events): fused {int(it)} iterations "
+          f"{acc_f}, its graphs capturing the NCCL collectives (set-up {loop.setup_s:.4f} "
+          f"s, loop {loop.loop_s:.4f} s, call {wall:.4f} s), final cost {float(cost):.6f} vs "
+          f"solve_window_fused {float(fused_single[3]):.6f} (rel {rel_f:.2e}), bits equal "
+          f"{same_fused}; host {len(host[3].iterations)} iterations {_accepts(host[3])}, "
+          f"{host[3].time_total_s:.4f} s (single-device host loop "
+          f"{single[3].time_total_s:.4f} s), final cost rel {rel_h:.2e}, bits equal "
+          f"{same_host}; A12 launches fused {launches_f} = {loop.form_passes} forming "
+          f"passes, host {launches_h} = {host[3].count_form}", flush=True)
+    _finite("14a fused", (k, gx, gy))
+    _finite("14a host", host[:3])
+    _require(loop.setup_s > 0, "14a: the fused sharded window did not capture its graphs")
+    _require(int(it) == int(fused_single[4]) and acc_f == _accepts(single[3]),
+             "14a: the fused sharded window took other steps than solve_window_fused")
+    _require(_accepts(host[3]) == _accepts(single[3]),
+             "14a: the host sharded window took other steps than the host loop")
+    _require(rel_f <= FUSED_COST_REL_TOL and rel_h <= FUSED_COST_REL_TOL,
+             f"14a: final cost rel {max(rel_f, rel_h):.2e} > {FUSED_COST_REL_TOL:.0e}")
+    _require(launches_f == loop.form_passes and launches_h == host[3].count_form,
+             "14a: A12 launches != forming passes")
+    return ({"14a_fused": launches_f, "14a_host": launches_h},
+            {"fused_loop_s": loop.loop_s, "host_s": host[3].time_total_s})
+
+
+def phase_sharded_gloo(ctx, d):
+    """14b, 14c, 14e: two ranks on the one card over gloo. Returns ({path:
+    A12 launches of each rank}, the largest absolute error of the kernel
+    against its plain version, {measure: value})."""
+    import torch
+
+    from emba_tpu_torch import dist, solver
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch.probes import sharded
+
+    sensor = ctx["sensor"]
+    path = os.path.join(d, "window.pt")
+    sharded.save_window(path, ctx["dev"], ctx["cfg"], ctx["start"],
+                        sensor.width * sensor.height, ctx["host"][0])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.spawn(sharded.window_rank, SHARDED_RANKS, "gloo",
+                       args=(path, SHARDED_WINDOW_ITERS), device="cuda",
+                       threads=RANK_THREADS, timeout_s=900)
+    wall = time.perf_counter() - t0
+    single = solver.solve_window(*ctx["start"], ctx["dev"], ctx["cfg"],
+                                 solver.LMConfig(max_num_iter=SHARDED_WINDOW_ITERS,
+                                                 tol_fun=0.0), fix_first=True)[3]
+    single_cost = _final_cost(single)
+    launches, max_abs, numbers = {}, 0.0, {"wall_s": wall}
+    for r, res in enumerate(ranks):
+        kc, h, f = res["kernel"], res["host"], res["fused"]
+        rel_h = abs(h["final_cost"] - single_cost) / abs(single_cost)
+        rel_f = abs(f["final_cost"] - single_cost) / abs(single_cost)
+        print(f"sharded 14b rank {r} (gloo, {res['events']} of the window's events): A12 "
+              f"kernel on its first forming pass ({kc['measurements']} weighted "
+              f"measurements) vs plain: " + "; ".join(
+                  f"{k} rel {v:.3e}" for k, v in kc["rel"].items())
+              + f"; the A12 reduce-scatter of that pass ({res['a12_bytes'] / 1e9:.3f} GB a "
+              f"rank) {res['a12_reduce_scatter_s']:.4f} s; host {h['iterations']} iterations "
+              f"{h['accepts']} in {h['seconds']:.4f} s (form {h['form_s']:.4f}, solve "
+              f"{h['solve_s']:.4f}, objective {h['objective_s']:.4f}), final cost "
+              f"{h['final_cost']:.6f} vs single host {single_cost:.6f} (rel {rel_h:.2e}); "
+              f"lm_while {f['iterations']} iterations {f['accepts']} in {f['seconds']:.4f} s "
+              f"(rel {rel_f:.2e}); A12 launches host {h['launches']} = {h['forms']}, "
+              f"lm_while {f['launches']} = {f['forms']} forming passes; peak "
+              f"{res['peak_reserved_bytes'] / 2**30:.3f} GiB reserved", flush=True)
+        for key, v in kc["rel"].items():
+            _require(v <= KERNEL_REL_TOL, f"14b rank {r}: A12 {key} rel {v:.3e} > "
+                     f"{KERNEL_REL_TOL:.0e}")
+        _require(kc["finite"] and kc["launches"] == 1,
+                 f"14b rank {r}: the A12 kernel did not run, or not finite")
+        for name, run, rel in (("host", h, rel_h), ("lm_while", f, rel_f)):
+            _require(run["finite"], f"14b rank {r} {name}: NaN/Inf in the state")
+            _require(run["accepts"] == _accepts(single),
+                     f"14b rank {r} {name}: other steps than the single-device host loop")
+            _require(rel <= SHARDED_F32_REL_TOL,
+                     f"14b rank {r} {name}: final cost rel {rel:.2e} > "
+                     f"{SHARDED_F32_REL_TOL:.0e}")
+            _require(run["launches"] == run["forms"],
+                     f"14b rank {r} {name}: A12 launches != forming passes")
+        _require(h["final_cost"] == ranks[0]["host"]["final_cost"]
+                 and f["final_cost"] == ranks[0]["fused"]["final_cost"],
+                 "14b: the ranks' results differ")
+        launches.update({f"14b_rank{r}_host": h["launches"],
+                         f"14b_rank{r}_lm_while": f["launches"]})
+        max_abs = max(max_abs, kc["max_abs_err"])
+        numbers.update({f"rank{r}_a12_reduce_scatter_s": res["a12_reduce_scatter_s"],
+                        f"rank{r}_host_s": h["seconds"], f"rank{r}_lm_while_s": f["seconds"],
+                        f"rank{r}_peak_reserved_bytes": res["peak_reserved_bytes"]})
+
+    # 14c: against the single-device map-only step on the card, both f32
+    knots = ctx["host"][0]
+    z = torch.zeros_like(ctx["start"][1])
+    gx, gy, costs = M.solve_map_only(knots, z, z, ctx["dev"], ctx["cfg"])
+    mo = ranks[0]["map_only"]
+    sgx, sgy = (torch.as_tensor(a) for a in (mo["gx"], mo["gy"]))
+    cfg = dataclasses.replace(ctx["cfg"], stream_chunk=1 << 20)
+    nem = M.cost_and_activity_streamed(knots, gx, gy, ctx["dev"], cfg)[1].cpu()
+    nem_s = M.cost_and_activity_streamed(knots, sgx.to(gx.device), sgy.to(gx.device),
+                                         ctx["dev"], cfg)[1].cpu()
+    same = (nem == nem_s).reshape(z.shape)
+    mag = max(float(gx.abs().max()), float(gy.abs().max()))
+    err = max(float((a.cpu().double() - b.double())[same].abs().max())
+              for a, b in ((gx, sgx), (gy, sgy))) / mag
+    print(f"sharded 14c map-only ({SHARDED_RANKS} ranks): data cost {mo['costs'][0]:.6g} -> "
+          f"{mo['costs'][-1]:.6g} (single device {costs[0]:.6g} -> {costs[-1]:.6g}); rel "
+          f"{err:.3e} on the {int(same.sum())} pixels whose counts agree ({int((~same).sum())} "
+          f"differ); two calls bit-equal {[r['map_only']['repeat_equal'] for r in ranks]}; "
+          f"{mo['seconds'][0]:.4f}, {mo['seconds'][1]:.4f} s a call", flush=True)
+    _require(err <= SHARDED_MAP_REL_TOL,
+             f"14c: sharded map-only rel {err:.3e} > {SHARDED_MAP_REL_TOL:.0e}")
+    _require(all(r["map_only"]["repeat_equal"] for r in ranks),
+             "14c: two sharded map-only calls differ in bits")
+    _require(mo["costs"][-1] < mo["costs"][0], "14c: the data cost did not fall")
+    numbers["map_only_s"] = mo["seconds"]
+
+    # 14e: dist.dryrun's variants on these ranks
+    dist.check_dryrun([r["dryrun"] for r in ranks], "gloo")
+    print(f"sharded 14b-e: {SHARDED_RANKS} ranks over gloo, {wall:.1f} s from spawn to join",
+          flush=True)
+    return launches, max_abs, numbers
+
+
+def _rmse(traj, p, d, name):
+    from emba_tpu_torch import cli
+
+    path = os.path.join(d, f"{name}.txt")
+    traj.write_tum(path)
+    return cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])["rotation_rmse_deg"]
+
+
+def phase_sharded_cli(p, run1, rmse1, d):
+    """14d: ``cli run --num-devices 2 --dist-backend gloo`` on phase 11's
+    scene against phase 11's run 1 (``run1``, refined RMSE ``rmse1``), on
+    ranks that run the CLI's rank path and count their A12 launches
+    (``probes.sharded.cli_rank``; the CLI's own spawn of them is held by
+    the CPU tests): fused, then recording, whose first mid-window
+    checkpoint one device then resumes. Returns ({path: A12 launches},
+    {run: seconds})."""
+    from emba_tpu_torch import cli, dist
+    from emba_tpu_torch.probes import sharded
+    from emba_tpu_torch.probes.suite_run import suite_argv
+
+    base = ["run"] + suite_argv(p)
+    argv = base + ["--num-devices", str(SHARDED_RANKS), "--dist-backend", "gloo"]
+    out, snap = os.path.join(d, "sharded_rec"), os.path.join(d, "sharded_mid.npz")
+    secs, runs, ranks = {}, {}, {}
+    for name, extra, keep in (("fused", [], None), ("recording", ["--out", out], snap)):
+        t0 = time.perf_counter()
+        ranks[name] = dist.spawn(sharded.cli_rank, SHARDED_RANKS, "gloo",
+                                 args=(argv + extra, keep), device="cuda",
+                                 threads=RANK_THREADS, timeout_s=900)
+        secs[name + "_s"] = time.perf_counter() - t0
+        runs[name] = ranks[name][0][0]
+    t0 = time.perf_counter()
+    runs["resumed"] = cli.main(base + ["--resume", snap])
+    secs["resumed_s"] = time.perf_counter() - t0
+    launches = {f"14d_rank{r}_{name}": n for name in ranks
+                for r, (_, n, _) in enumerate(ranks[name])}
+    cost1 = _final_cost(run1.window_stats[0])
+    for name, mode in (("fused", "fused-sharded"), ("recording", "host-sharded"),
+                       ("resumed", "host")):
+        res = runs[name]
+        st = res.window_stats[0]
+        cost = _final_cost(st)
+        rel = abs(cost - cost1) / abs(cost1)
+        rmse = _rmse(res.trajectory, p, d, f"sharded_{name}")
+        print(f"sharded 14d {name} ({len(res.window_stats)} window, lm_mode {st.lm_mode}): "
+              f"{len(st.iterations)} iterations {_accepts(st)} (run 1: "
+              f"{len(run1.window_stats[0].iterations)} {_accepts(run1.window_stats[0])}); "
+              f"final cost {cost:.6f} vs run 1 {cost1:.6f} (rel {rel:.2e}); RMSE {rmse:.4f} "
+              f"vs run 1 {rmse1:.4f} deg; {secs[name + '_s']:.1f} s", flush=True)
+        _require(st.lm_mode == mode, f"14d {name}: lm_mode {st.lm_mode}, expected {mode}")
+        _require(np.isfinite(res.trajectory.knots).all() and np.isfinite(res.gx).all(),
+                 f"14d {name}: NaN/Inf in the result")
+        _require(rel <= SHARDED_CLI_COST_REL_TOL,
+                 f"14d {name}: final cost rel {rel:.2e} > {SHARDED_CLI_COST_REL_TOL:.0e}")
+        _require(abs(rmse - rmse1) <= SHARDED_RMSE_TOL_DEG,
+                 f"14d {name}: RMSE {rmse:.4f} vs run 1 {rmse1:.4f} deg")
+    for name in ranks:
+        for r, (res, n, peak) in enumerate(ranks[name]):
+            forms = sum(st.count_form for st in res.window_stats)
+            print(f"sharded 14d {name} rank {r}: A12 launches {n} = {forms} forming "
+                  f"passes; peak {peak / 2**30:.3f} GiB reserved", flush=True)
+            _require(n == forms, f"14d {name} rank {r}: A12 launches {n} != forming "
+                     f"passes {forms}")
+    z = np.load(snap)
+    _require(bool(z["mid_window"]) and len(runs["resumed"].window_stats[0].iterations)
+             == len(runs["recording"].window_stats[0].iterations) - int(z["lm_it"]),
+             "14d: the resumed run did not continue the checkpoint's window")
+    return launches, secs
+
+
 def main() -> int:
     import torch
 
@@ -1817,12 +2114,21 @@ def main() -> int:
     phase_reference(device)
     ctx = phase_main(device)
     win = phase_window_kernel(ctx)
-    a12_launches = phase_fused(ctx)
+    a12_launches, fused_single = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
     p12, p13 = {}, {}
     with tempfile.TemporaryDirectory() as d:
-        pipeline_launches, pipe_err, scene_files, rmse_run3 = phase_pipeline(device, d)
+        sharded_launches, sharded_s = phase_sharded_nccl(ctx, fused_single)
+        del fused_single
+        gloo_launches, err_14b, gloo_numbers = phase_sharded_gloo(ctx, d)
+        sharded_launches.update(gloo_launches)
+        sharded_s.update(gloo_numbers)
+        (pipeline_launches, pipe_err, scene_files, rmse_run3,
+         run1) = phase_pipeline(device, d)
+        cli_launches, sharded_s["14d"] = phase_sharded_cli(scene_files, run1, rmse_run3[1], d)
+        sharded_launches.update(cli_launches)
+        del run1
         p12["12a"], err_a = phase_multi_start(scene_files, rmse_run3)
         p12["12b"], err_b = phase_suite_row()
         p12["12d"], err_d = phase_compact_1k(ctx)
@@ -1847,7 +2153,7 @@ def main() -> int:
         "replaces": "emba_tpu/kernels/a12_accum.py:79",
         "launches": a12_launches,
         "max_abs_err": max(syn[0], win[0], pipe_err, err_a, err_b, err_c, err_d, err_13a,
-                           err_13b, err_13c),
+                           err_13b, err_13c, err_14b),
         "ms": syn[1],
         "plain_ms": syn[2],
         "bound_ms": syn[3],
@@ -1878,6 +2184,8 @@ def main() -> int:
         "stream_4k_peak_reserved_bytes": peaks_13c,
         "super_res_data_costs": super_res["data_costs"],
         "super_res_peak_reserved_bytes": super_res_peak,
+        "sharded_launches": sharded_launches,
+        "sharded_s": sharded_s,
     }, {
         "name": "gather_sum",
         "route": "cuda",

@@ -10,6 +10,11 @@ Subcommands:
 
 ``run`` and ``suite`` take ``--device {cuda,cpu}`` (default cuda): without
 a CUDA device, ``--device cuda`` raises; the CPU runs only when asked for.
+``run --num-devices N`` (N > 1) spawns N ranks (``dist.spawn``) over
+``--dist-backend`` (nccl, the default: one GPU a rank; gloo: CPU ranks, or
+several ranks on one GPU through the host); each rank runs the pipeline on
+the same files and solves its shard of every window; rank 0 prints and
+writes, and its result is the call's.
 """
 
 from __future__ import annotations
@@ -22,7 +27,13 @@ import sys
 import numpy as np
 
 
+def _run_rank(comm, args):
+    del comm  # the pipeline finds the rank's process group (dist.current)
+    return _cmd_run(args)
+
+
 def _cmd_run(args):
+    from . import dist
     from . import config as C
     from . import io as eio
     from . import rosbag as rb
@@ -53,6 +64,10 @@ def _cmd_run(args):
                 args.map_gy = f"{map_dir}/Gy.bin"
     if not args.events or not args.poses:
         sys.exit("need --events and --poses (or the reference-layout dirs)")
+    if (args.num_devices or 1) > 1 and dist.current() is None:
+        return dist.spawn(_run_rank, args.num_devices, args.dist_backend, args=(args,),
+                          timeout_s=None, device=args.device)[0]
+    rank0 = dist.current() is None or dist.current().rank == 0  # logs and writes
     for k in (
         "start_time",
         "stop_time",
@@ -124,12 +139,14 @@ def _cmd_run(args):
     span_end = float(min(times[-1], t[-1])) - cfg.time_offset
     span_start = float(max(times[0], t[0])) - cfg.time_offset
     if args.stop_time is None and cfg.stop_time > span_end:
-        print(f"# clamping stop_time {cfg.stop_time} -> {span_end:.4f} "
-              "(end of data)", file=sys.stderr)
+        if rank0:
+            print(f"# clamping stop_time {cfg.stop_time} -> {span_end:.4f} "
+                  "(end of data)", file=sys.stderr)
         cfg.stop_time = span_end
     if args.start_time is None and cfg.start_time < span_start:
-        print(f"# clamping start_time {cfg.start_time} -> {span_start:.4f} "
-              "(start of data)", file=sys.stderr)
+        if rank0:
+            print(f"# clamping start_time {cfg.start_time} -> {span_start:.4f} "
+                  "(start of data)", file=sys.stderr)
         cfg.start_time = span_start
 
     # --- initial map ---------------------------------------------------------
@@ -153,8 +170,11 @@ def _cmd_run(args):
         record_maps=args.record_maps,
         device=args.device,
     )
-    with nan_debug(args.debug_nans), profiler_trace(args.profile_dir, pipe.device):
+    with nan_debug(args.debug_nans), profiler_trace(args.profile_dir if rank0 else None,
+                                                    pipe.device):
         res = pipe.run(resume_from=args.resume)
+    if not rank0:
+        return res
     eps = res.window_stats[-1].events_per_second() if res.window_stats else {}
     print(
         json.dumps(
@@ -333,8 +353,14 @@ def main(argv=None):
     )
     r.add_argument(
         "--num-devices", dest="num_devices", type=int,
-        help="devices for a sharded window (more than one is not ported yet: "
-        "raises, ROADMAP item 14)",
+        help="solve every window sharded over this many ranks, which this "
+        "command spawns (one GPU each over nccl)",
+    )
+    r.add_argument(
+        "--dist-backend", dest="dist_backend", choices=["nccl", "gloo"], default="nccl",
+        help="collectives of a sharded run: nccl (one GPU a rank) or gloo (CPU ranks "
+        "with --device cpu; on CUDA, tensors staged through the host, so several "
+        "ranks can share one GPU)",
     )
     r.add_argument(
         "--time-window-size", dest="time_window_size", type=float,

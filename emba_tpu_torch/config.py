@@ -103,8 +103,8 @@ class BAConfig:
     # interrupted window resumes bit for bit with --resume. 0 disables.
     # Fused windows checkpoint at window boundaries only.
     lm_checkpoint_every: int = 10
-    # Devices for a sharded window (ROADMAP item 14, not ported: more than
-    # one raises). None = one device.
+    # Ranks of a sharded window (dist.py; the process group must exist,
+    # as cli run --num-devices spawns it). None = one device.
     num_devices: int | None = None
     # Super-resolution map: after a recording run, the full pixel grid at
     # this panorama height (width 2x) solved by the closed-form map-only

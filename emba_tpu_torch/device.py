@@ -10,10 +10,13 @@ import torch
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises RuntimeError when there is none."""
+    """This process's CUDA device, the current one; raises RuntimeError
+    when there is none. A rank of a sharded run has its own card current
+    (``dist.init`` maps the rank to it: ``LOCAL_RANK`` or the rank); any
+    other process has device 0."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this path runs on the GPU only")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def full_precision() -> None:

@@ -211,6 +211,10 @@ def _launch(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix, dim_pose, order,
         raise ValueError(f"a12_accumulate: {n} measurements of {knots} knots "
                          "overflow the kernel's int32 keys")
     device = Jc.device
+    # the library launches on the calling thread's current device
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"a12_accumulate: tensors on {device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()} (torch.cuda.set_device)")
     f32, i32 = torch.float32, torch.int32
     if carry is None:
         a12 = torch.empty((r_pad, 2 * dp_pad), dtype=f32, device=device)
@@ -228,35 +232,34 @@ def _launch(pm_pix, i_c, i_p, Jc, Jp, dx, dy, e, wA, num_pix, dim_pose, order,
 
     rw, ncp = scratch_sizes(order)
     max_heavy, max_chunks = chunk_bounds(n, num_keys)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        row_key = torch.empty(n, dtype=i32, device=device)
-        pair_key = torch.empty(n, dtype=i32, device=device)
-        check(lib.emba_a12_keys(pm_pix.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
-                                wA.data_ptr(), n, order, dim_pose, r_pad, knots,
-                                row_key.data_ptr(), pair_key.data_ptr(), stream))
-        row_ids, row_off = sorted_runs(row_key, r_pad)
-        pair_ids, key_off = sorted_runs(pair_key, num_keys)
-        # records lie in pair order; the rows reach theirs through slot
-        pos = inverse_permutation(pair_ids)
-        slot = torch.gather(pos, 0, row_ids)
-        del row_ids, pair_ids, row_key, pair_key
-        hc_start, hc_row = chunk_map(row_off, HEAVY_ROW, max_heavy, heavy_only=True)
-        ck_start, ck_key = chunk_map(key_off, PAIR_CHUNK, max_chunks)
-        rec = torch.empty((n, rw), dtype=f32, device=device)
-        heavy_part = torch.empty((max_heavy, 2 * dp_pad + 8), dtype=f32, device=device)
-        a11_part = torch.empty((max_chunks, ncp), dtype=f32, device=device)
-        marg = torch.empty((2, knots, ncp), dtype=f32, device=device)
-        check(lib.emba_a12_form(
-            pos.data_ptr(), slot.data_ptr(), row_off.data_ptr(),
-            hc_start.data_ptr(), hc_row.data_ptr(), key_off.data_ptr(),
-            ck_start.data_ptr(), ck_key.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
-            Jc.data_ptr(), Jp.data_ptr(), dx.data_ptr(), dy.data_ptr(), e.data_ptr(),
-            wA.data_ptr(), n, order, dim_pose, dp_pad, r_pad, knots,
-            int(carry is not None), max_heavy, HEAVY_ROW, max_chunks, PAIR_CHUNK,
-            rec.data_ptr(), heavy_part.data_ptr(),
-            a11_part.data_ptr(), marg.data_ptr(), a12.data_ptr(), px5.data_ptr(),
-            a11b.data_ptr(), stream))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    row_key = torch.empty(n, dtype=i32, device=device)
+    pair_key = torch.empty(n, dtype=i32, device=device)
+    check(lib.emba_a12_keys(pm_pix.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
+                            wA.data_ptr(), n, order, dim_pose, r_pad, knots,
+                            row_key.data_ptr(), pair_key.data_ptr(), stream))
+    row_ids, row_off = sorted_runs(row_key, r_pad)
+    pair_ids, key_off = sorted_runs(pair_key, num_keys)
+    # records lie in pair order; the rows reach theirs through slot
+    pos = inverse_permutation(pair_ids)
+    slot = torch.gather(pos, 0, row_ids)
+    del row_ids, pair_ids, row_key, pair_key
+    hc_start, hc_row = chunk_map(row_off, HEAVY_ROW, max_heavy, heavy_only=True)
+    ck_start, ck_key = chunk_map(key_off, PAIR_CHUNK, max_chunks)
+    rec = torch.empty((n, rw), dtype=f32, device=device)
+    heavy_part = torch.empty((max_heavy, 2 * dp_pad + 8), dtype=f32, device=device)
+    a11_part = torch.empty((max_chunks, ncp), dtype=f32, device=device)
+    marg = torch.empty((2, knots, ncp), dtype=f32, device=device)
+    check(lib.emba_a12_form(
+        pos.data_ptr(), slot.data_ptr(), row_off.data_ptr(),
+        hc_start.data_ptr(), hc_row.data_ptr(), key_off.data_ptr(),
+        ck_start.data_ptr(), ck_key.data_ptr(), i_c.data_ptr(), i_p.data_ptr(),
+        Jc.data_ptr(), Jp.data_ptr(), dx.data_ptr(), dy.data_ptr(), e.data_ptr(),
+        wA.data_ptr(), n, order, dim_pose, dp_pad, r_pad, knots,
+        int(carry is not None), max_heavy, HEAVY_ROW, max_chunks, PAIR_CHUNK,
+        rec.data_ptr(), heavy_part.data_ptr(),
+        a11_part.data_ptr(), marg.data_ptr(), a12.data_ptr(), px5.data_ptr(),
+        a11b.data_ptr(), stream))
     launches += 1
     return a12, px5, a11b
 

@@ -645,8 +645,28 @@ def form_normal_eq_streamed(aux, knots, Gx, Gy, dev: DeviceWindow, cfg: ModelCon
 MAP_ONLY_REPEAT_REL_TOL = 1e-5
 
 
+class _Whole:
+    """The collectives of a window that one device holds whole: the
+    interface of ``dist.Comm`` at one rank (every sum is the rank's own,
+    its chunk is the whole)."""
+
+    world, rank = 1, 0
+
+    @staticmethod
+    def all_reduce_sum(x):
+        return x
+
+    @staticmethod
+    def reduce_scatter_sum(x, dim=0):
+        return x
+
+    @staticmethod
+    def all_gather(x, dim=0):
+        return x
+
+
 def map_only_step(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
-                  prev_bearings=None, prev_bids=None):
+                  prev_bearings=None, prev_bids=None, comm=None):
     """One map-only step with the trajectory fixed (the super-resolution
     path): with the pose frozen the residual is affine in the map, so the
     map block decouples into per-pixel 2x2 systems ``(A22 + alpha I) x2 =
@@ -656,29 +676,62 @@ def map_only_step(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
     or A12, so memory is
     O(HW + chunk) at any panorama size. With ``use_irls`` the weights are
     taken at the input map. Returns (Gx', Gy', data cost at the input map,
-    num_ev_map); inactive pixels reset to zero."""
+    num_ev_map); inactive pixels reset to zero.
+
+    ``comm`` (a ``dist.Comm``; ``dev`` its rank's shard, the prev records
+    its halo's): the count map and the cost summed over the ranks, the
+    five per-pixel sums reduce-scattered as one (5, HW_pad) tensor (HW
+    padded to a multiple of the ranks), the 2x2 solves on the rank's chunk
+    of pixels, the solved maps gathered."""
+    comm = comm or _Whole
     dt, device = Gx.dtype, Gx.device
     hw = cfg.num_pix
+    rows = -(-hw // comm.world)
     bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
                                            prev_bearings, prev_bids)
     cost0, nem = _activity_and_cost(bounds, pieces, cfg, dt, device)
+    cost0, nem = comm.all_reduce_sum(cost0), comm.all_reduce_sum(nem)
     active = nem >= cfg.thres_valid_pixel
+    sums = comm.reduce_scatter_sum(
+        map_only_sums(bounds, pieces, active, cfg, dt, device, rows * comm.world), dim=1)
 
-    a22xx, a22xy, a22yy, b2x, b2y = (torch.zeros(hw, dtype=dt, device=device)
-                                     for _ in range(5))
+    def chunk(v):
+        v = torch.nn.functional.pad(v, (0, rows * comm.world - hw))
+        return v[comm.rank * rows:(comm.rank + 1) * rows]
+
+    gx_c, gy_c = map_only_solve(sums, chunk(active), chunk(Gx.reshape(-1).to(dt)),
+                                chunk(Gy.reshape(-1).to(dt)), cfg)
+    maps = comm.all_gather(torch.stack([gx_c, gy_c]), dim=1)[:, :hw]
+    return maps[0].reshape(Gx.shape), maps[1].reshape(Gy.shape), cost0, nem
+
+
+def map_only_sums(bounds, pieces, active, cfg, dt, device, size: int):
+    """The map-only step's per-pixel sums over the chunks of ``pieces``:
+    (5, ``size``) rows a22_xx, a22_xy, a22_yy, b2_x, b2_y of the
+    active-masked measurements, each added in a fixed order
+    (``device.add_at``); ``size`` >= HW (a sharded step pads the pixel
+    axis to a multiple of its ranks)."""
+    acc = torch.zeros((5, size), dtype=dt, device=device)
     for lo, hi in bounds:
         e, inl, pmp, _ic, _ip, dx, dy = pieces(lo, hi)
         pix = pmp.long()
         wA = _meas_weights(e, inl, pmp, active, cfg, dt)
         we = wA * e
-        add_at(a22xx, pix, wA * dx * dx)
-        add_at(a22xy, pix, wA * dx * dy)
-        add_at(a22yy, pix, wA * dy * dy)
-        add_at(b2x, pix, we * dx)
-        add_at(b2y, pix, we * dy)
+        for row, v in zip(acc, (wA * dx * dx, wA * dx * dy, wA * dy * dy, we * dx,
+                                we * dy)):
+            add_at(row, pix, v)
+    return acc
 
+
+def map_only_solve(sums, active, gx_f, gy_f, cfg):
+    """The closed-form per-pixel 2x2 solve of the map-only step on a run of
+    pixels: ``sums`` (5, P) from :func:`map_only_sums`, ``active`` and the
+    flat maps ``gx_f``, ``gy_f`` (P,). Returns the new flat maps; inactive
+    pixels reset to zero. Each pixel's arithmetic is its own, so a rank
+    solving a chunk of the pixels gets the bits of the whole solve."""
+    a22xx, a22xy, a22yy, b2x, b2y = sums
+    dt, device = gx_f.dtype, gx_f.device
     af = active.to(dt)
-    gx_f, gy_f = Gx.reshape(-1).to(dt), Gy.reshape(-1).to(dt)
     a = a22xx + cfg.alpha * af
     b = a22xy
     d = a22yy + cfg.alpha * af
@@ -690,29 +743,31 @@ def map_only_step(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
     x2x = (d * rx - b * ry) * ok
     x2y = (a * ry - b * rx) * ok
     zero = torch.zeros((), dtype=dt, device=device)
-    gx_new = torch.where(active, gx_f + x2x, zero).reshape(Gx.shape)
-    gy_new = torch.where(active, gy_f + x2y, zero).reshape(Gy.shape)
-    return gx_new, gy_new, cost0, nem
+    return torch.where(active, gx_f + x2x, zero), torch.where(active, gy_f + x2y, zero)
 
 
 def solve_map_only(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig, num_iters: int = 1,
-                   prev_bearings=None, prev_bids=None):
+                   prev_bearings=None, prev_bids=None, comm=None):
     """The map from a fixed trajectory (:func:`map_only_step`). One step is
     exact for the quadratic cost; ``num_iters > 1`` refreshes the IRLS
     weights between steps. Without ``stream_chunk`` it streams in chunks of
-    2^20 events; compaction does not apply (rows are pixels). Returns (Gx,
-    Gy, costs): ``num_iters + 1`` data costs, the last at the final map."""
+    2^20 events; compaction does not apply (rows are pixels). With
+    ``comm``, over the ranks' shards (the prev records are then required:
+    ``dist.prev_records``). Returns (Gx, Gy, costs): ``num_iters + 1`` data
+    costs, the last at the final map."""
     if cfg.stream_chunk is None:
         cfg = dataclasses.replace(cfg, stream_chunk=1 << 20)
     if cfg.compact_cap is not None:
         cfg = dataclasses.replace(cfg, compact_cap=None)
+    comm = comm or _Whole
     pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
     costs = []
     for _ in range(num_iters):
-        Gx, Gy, cost, _nem = map_only_step(knots, Gx, Gy, dev, cfg, pb, pbid)
+        Gx, Gy, cost, _nem = map_only_step(knots, Gx, Gy, dev, cfg, pb, pbid, comm)
         costs.append(float(cost))
     bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False, pb, pbid)
-    costs.append(float(_activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)[0]))
+    cost = _activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)[0]
+    costs.append(float(comm.all_reduce_sum(cost)))
     return Gx, Gy, costs
 
 
@@ -800,7 +855,8 @@ def _damped_a22_inv(neq: NormalEq, lam):
     return c * inv, -b * inv, a * inv  # m00, m01, m11
 
 
-def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
+def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False, reduce=None,
+                    gather=None):
     """Schur-complement solve:
 
       A11m = A11 + lam diag(A11);  A22m^-1 per 2x2 block;
@@ -809,6 +865,11 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
 
     ``fix_first`` gauge-fixes the first control pose by masking its rows and
     columns. Returns x1 (3K,) and x2 (2, R_pad).
+
+    The map rows of ``neq`` may be one rank's chunk of them (``dist``):
+    ``reduce`` then sums a tensor over the ranks (the parts of S and of the
+    right-hand side, in one call) and ``gather`` assembles x2 (2, rows)
+    from the chunks into (2, R_pad).
     """
     dt = neq.b1.dtype
     device = neq.b1.device
@@ -822,11 +883,15 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
     Ze = Ae * m00[:, None] + Ao * m01[:, None]
     Zo = Ae * m01[:, None] + Ao * m11[:, None]
     S_red = Ae.T @ Ze + Ao.T @ Zo
-    S = A11m - S_red[:dim, :dim]
 
     ib2x = m00 * neq.b2_x + m01 * neq.b2_y
     ib2y = m01 * neq.b2_x + m11 * neq.b2_y
-    rhs = b1 - (ib2x @ Ae + ib2y @ Ao)[:dim]
+    rhs_red = ib2x @ Ae + ib2y @ Ao
+    if reduce is not None:
+        both = reduce(torch.cat([S_red, rhs_red[None]]))
+        S_red, rhs_red = both[:dp_pad], both[dp_pad]
+    S = A11m - S_red[:dim, :dim]
+    rhs = b1 - rhs_red[:dim]
 
     # diagonal floor: unobserved knots solve to zero instead of NaN
     eps = 1e-10 * torch.clamp(torch.max(torch.diag(S)), min=1.0) + 1e-30
@@ -840,12 +905,13 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False):
     vy = neq.b2_y - Ao @ x1_pad
     x2x = m00 * vx + m01 * vy
     x2y = m01 * vx + m11 * vy
-    return x1, torch.stack([x2x, x2y])
+    x2 = torch.stack([x2x, x2y])
+    return x1, x2 if gather is None else gather(x2)
 
 
 def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
                        max_iter: int = 100, tol: float = 1e-6,
-                       early_exit: bool = True):
+                       early_exit: bool = True, reduce=None, gather=None):
     """Matrix-free conjugate gradient on the full system
     [A11m A12; A12^T A22m] (counterpart of ``emba_tpu.model.solve_normal_eq_cg``),
     the operator applied blockwise, with the block-Jacobi preconditioner:
@@ -858,6 +924,11 @@ def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
     met (the same result and iteration count), as a loop captured in a CUDA
     graph must. Returns (x1 (3K,), x2 (2, R_pad), iterations, relative
     residual).
+
+    ``reduce`` and ``gather``: a rank's chunk of the map rows, as in
+    :func:`solve_normal_eq`. The pose vectors stay whole on every rank; the
+    A12 cross term and the map part of each inner product are summed over
+    the ranks, so every rank takes the same iterations.
     """
     dt = neq.b1.dtype
     device = neq.b1.device
@@ -875,7 +946,10 @@ def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
         return torch.nn.functional.pad(x1, (0, dp_pad - dim))
 
     def matvec(x1, x2x, x2y):
-        y1 = A11m @ x1 + (x2x @ Ae + x2y @ Ao)[:dim]
+        cross = x2x @ Ae + x2y @ Ao
+        if reduce is not None:
+            cross = reduce(cross)
+        y1 = A11m @ x1 + cross[:dim]
         a22x = axx * x2x + axy * x2y
         a22y = axy * x2x + ayy * x2y
         # inactive pixels: identity rows (their rhs is zero, so they stay zero)
@@ -884,7 +958,10 @@ def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
         return y1, y2x, y2y
 
     def dot(a, b):
-        return sum(torch.sum(x * y) for x, y in zip(a, b))
+        if reduce is None:
+            return sum(torch.sum(x * y) for x, y in zip(a, b))
+        return torch.sum(a[0] * b[0]) + reduce(torch.sum(a[1] * b[1])
+                                               + torch.sum(a[2] * b[2]))
 
     b = (b1, neq.b2_x * act, neq.b2_y * act)
     bnorm2 = dot(b, b)
@@ -929,7 +1006,8 @@ def solve_normal_eq_cg(neq: NormalEq, lam, fix_first: bool = False,
         it = it + run.to(it.dtype)
     x1, x2x, x2y = x
     rel = torch.sqrt(rs / torch.clamp(bnorm2, min=1e-300))
-    return x1, torch.stack([x2x * act, x2y * act]), it, rel
+    x2 = torch.stack([x2x * act, x2y * act])
+    return x1, x2 if gather is None else gather(x2), it, rel
 
 
 def update_map(Gx, Gy, x2, damping, neq: NormalEq):

@@ -78,3 +78,18 @@ def build_window(t, x, y, pol, sensor_width: int, traj_locate,
         batch_u=np.asarray(u, np.float64).reshape(nb),
         batch_size=batch_size,
     )
+
+
+def time_map(win: EventWindow, sensor_width: int, sensor_height: int, t0: float):
+    """Last-event timestamp per sensor pixel, relative to ``t0`` (0 where no
+    event fell; reference ``getTimeMap``)."""
+    out = np.zeros((sensor_height, sensor_width))
+    np.maximum.at(out, (win.y, win.x), win.t - t0)
+    return out
+
+
+def event_count_map(win: EventWindow, sensor_width: int, sensor_height: int):
+    """Events per sensor pixel, int32 (reference ``getEventNumMap``)."""
+    out = np.zeros((sensor_height, sensor_width), dtype=np.int32)
+    np.add.at(out, (win.y, win.x), 1)
+    return out

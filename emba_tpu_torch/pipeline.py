@@ -24,11 +24,18 @@ orchestrator ``src/emba/emba.cpp``):
   grid at that height solved by the closed-form map-only step from the
   refined trajectory (:meth:`EmbaPipeline.solve_super_res_map`).
 
-The device: ``EmbaPipeline(..., device=None)`` runs on the first CUDA
-device and raises when there is none; only an explicit ``device="cpu"``
-runs on the CPU. A sharded window (``num_devices`` > 1) is not ported and
-raises ``NotImplementedError`` naming its ROADMAP item; nothing is
-replaced in silence.
+The device: ``EmbaPipeline(..., device=None)`` runs on this process's CUDA
+device (``device.require_cuda``) and raises when there is none; only an
+explicit ``device="cpu"`` runs on the CPU.
+
+Sharded windows (``num_devices`` > 1): every rank of a process group
+(``dist.init``, ``dist.spawn``; ``cli run --num-devices`` spawns its ranks)
+runs the same pipeline on the same files, prepares the same windows and
+keeps its shard of each (``dist.shard_window``); every solve (fused or
+host, coarse stages, multi-start variants, the super-resolution map, the
+compaction retune's count) runs sharded (``dist.Sharded``). Only rank 0
+writes outputs, logs and checkpoints. A checkpoint does not depend on the
+ranks: one taken at one world size resumes at another, or at one device.
 """
 
 from __future__ import annotations
@@ -43,13 +50,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import convert, lm as lm_mod, model, obs, pairing, recon, solver, spline
+from . import convert, dist, lm as lm_mod, model, obs, pairing, recon, solver, spline
 from . import io as eio
 from .camera import PinholeCamera
 from .config import BAConfig
 from .device import require_cuda
 
-_SHARDED = "ROADMAP queue 1 item 14 (sharded windows)"
 # The chunk of a window the pipeline streams by itself (above the
 # classic-window cap), the reference's.
 AUTO_STREAM_CHUNK = 1 << 21
@@ -94,26 +100,21 @@ def retune_compact_cap(observed_active: int, hw: int) -> int:
     return min(desired, 1 << int(np.ceil(np.log2(hw))))
 
 
-def count_active_pixels(knots, gx, gy, dev, mcfg) -> int:
+def count_active_pixels(knots, gx, gy, dev, mcfg, placement) -> int:
     """Active pixels of a solved window: pano pixels with at least
     ``thres_valid_pixel`` inlier events at its state, on the window's
     device; the one host read of the count. The map comes from the light
     linearization, or for a streamed window from the FULL tier's chunked
-    objective, which holds nothing event-sized."""
-    if mcfg.stream_chunk is not None:
-        nem = model.cost_and_activity_streamed(knots, gx, gy, dev, mcfg)[1]
-    else:
-        nem = model.linearize(knots, gx, gy, dev, mcfg, need_deriv=False).num_ev_map
+    objective, which holds nothing event-sized (``placement``: over every
+    rank's events when sharded)."""
+    nem = placement.cost_and_activity(knots, gx, gy, dev, mcfg)[1]
     return int(torch.sum((nem >= mcfg.thres_valid_pixel).to(torch.int32)))
 
 
-def data_cost_at(knots, gx, gy, dev, mcfg) -> float:
+def data_cost_at(knots, gx, gy, dev, mcfg, placement) -> float:
     """The data cost of a state (a streamed window's by the chunked
     objective); one host read."""
-    if mcfg.stream_chunk is not None:
-        return float(model.cost_and_activity_streamed(knots, gx, gy, dev, mcfg)[0])
-    lin = model.linearize(knots, gx, gy, dev, mcfg, need_deriv=False)
-    return float(model.data_cost(lin.e, mcfg))
+    return float(placement.cost_and_activity(knots, gx, gy, dev, mcfg)[0])
 
 
 def coarse_config(mcfg: model.ModelConfig):
@@ -228,12 +229,6 @@ def plan_model_config(
     return mcfg, auto_cap
 
 
-def _check_ported(cfg: BAConfig):
-    if (cfg.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"BAConfig.num_devices={cfg.num_devices}: not ported yet, see {_SHARDED}")
-
-
 def systematic_subsample(t, x, y, pol, rate: int):
     """Keep every ``rate``-th event (reference ``emba.cpp:282-304``)."""
     if rate < 2:
@@ -305,14 +300,31 @@ class EmbaPipeline:
         seed: int = 0,
         device=None,
     ):
-        if device is None:
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and device.index is None:
             device = require_cuda()
-        device = torch.device(device)
-        if device.type == "cuda":
+        elif device.type == "cuda":
             require_cuda()
         self.device = device
         self.cfg = cfg
         self.camera = camera
+        # a sharded run: this process's rank of a process group of
+        # num_devices ranks, on this pipeline's device
+        self.comm = None
+        self.placement = solver.LOCAL
+        if (cfg.num_devices or 1) > 1:
+            self.comm = dist.current()
+            if self.comm is None or self.comm.world != cfg.num_devices:
+                raise RuntimeError(
+                    f"BAConfig.num_devices={cfg.num_devices} needs a process group of as "
+                    f"many ranks (dist.init, dist.spawn, cli run --num-devices); this "
+                    f"process has {'none' if self.comm is None else self.comm.world}")
+            if self.comm.device != device:
+                raise ValueError(f"the rank works on {self.comm.device}, the pipeline "
+                                 f"on {device}")
+            self.placement = dist.Sharded(self.comm, camera.width * camera.height)
+        # only rank 0 writes; every rank runs the same loops
+        self._writer = self.comm is None or self.comm.rank == 0
         self.record_data = record_data and result_dir is not None
         self.record_maps = record_maps
         self.result_dir = result_dir
@@ -360,7 +372,7 @@ class EmbaPipeline:
         self.traj = spline.Trajectory.empty(t0, cfg.dt_knots, cfg.spline_order)
         self._resume_lm = None
 
-        if self.record_data:
+        if self.record_data and self._writer:
             eio.ensure_dir(result_dir)
             eio.ensure_dir(os.path.join(result_dir, "final_results"))
             for d in ("Gx_evo", "Gy_evo", "G_hsv_evo", "map_poisson_evo", "map_opt"):
@@ -386,7 +398,7 @@ class EmbaPipeline:
         return _host(recon.reconstruct_from_gradient(*g))
 
     def _save_maps(self, tag: str, win_id: int, it: int, gx=None, gy=None):
-        if not (self.record_data and self.record_maps):
+        if not (self.record_data and self.record_maps and self._writer):
             return
         gx = _host(self.gx if gx is None else gx)
         gy = _host(self.gy if gy is None else gy)
@@ -403,7 +415,7 @@ class EmbaPipeline:
         """Per-LM-iteration evolution dumps (reference ``saveEvoData``,
         solver.cpp:370-425): the evolving Gx/Gy/HSV images plus the Poisson
         brightness snapshot, one file set per iteration."""
-        if not (self.record_data and self.record_maps):
+        if not (self.record_data and self.record_maps and self._writer):
             return
         gx, gy = _host(gx), _host(gy)
         pre = f"win_{win_id:04d}_"
@@ -569,10 +581,10 @@ class EmbaPipeline:
 
     def run(self, resume_from: str | None = None) -> RunResult:
         cfg = self.cfg
-        _check_ported(cfg)
+        n_dev = self.comm.world if self.comm is not None else 1
         mcfg, auto_cap = plan_model_config(
             cfg.model_config(), cfg, self.t, self.t_ba_beg, self.t_ba_end,
-            self.win_size, self.win_stride, 1,
+            self.win_size, self.win_stride, n_dev,
         )
         lm = cfg.lm_config()
 
@@ -655,9 +667,12 @@ class EmbaPipeline:
                 win = prep.win
                 # a streamed window is padded to a chunk multiple: its last
                 # chunk is full, and its chunk count follows from its shape
+                # (a sharded one to a multiple of the ranks, as the
+                # reference's)
                 dev = model.DeviceWindow.from_window(
                     win, self.bearing_lut, self.camera.width, self.dtype, self.device,
-                    pad_multiple=mcfg.stream_chunk or 1)
+                    pad_multiple=(mcfg.stream_chunk or 1) if self.comm is None else 1)
+                dev = self.placement.shard(dev)
                 win_id = count_window
                 if cfg.multi_start and resume_lm is None:
                     knots, gx_j, gy_j, stats, final_cost = self._solve_multi_start(
@@ -700,7 +715,7 @@ class EmbaPipeline:
                 count_window += 1
                 first_window = False
 
-                if self.record_data:
+                if self.record_data and self._writer:
                     self.save_checkpoint(
                         os.path.join(self.result_dir, "final_results",
                                      "checkpoint.npz"),
@@ -709,7 +724,9 @@ class EmbaPipeline:
         finally:
             executor.shutdown(wait=True, cancel_futures=True)
 
-        if self.record_data:
+        super_res = (self.solve_super_res_map(cfg.super_res_height)
+                     if self.record_data and cfg.super_res_height else None)
+        if self.record_data and self._writer:
             self.traj.write_tum(
                 os.path.join(
                     self.result_dir, "final_results", "trajectory_refined.txt"
@@ -722,8 +739,8 @@ class EmbaPipeline:
                 self.gx,
                 self.gy,
             )
-            if cfg.super_res_height:
-                self._write_super_res(cfg.super_res_height)
+            if super_res is not None:
+                self._write_super_res(cfg.super_res_height, *super_res)
             self._write_runtime(window_stats)
             self._iter_log.close()
 
@@ -747,10 +764,10 @@ class EmbaPipeline:
         or A12 and no compaction at any resolution. The outlier cut scales
         with the resolution (it is in panorama pixels). The events stream
         in chunks of ``stream_chunk`` (:data:`SUPER_RES_CHUNK` unless set)
-        on the pipeline's device. ``num_iters`` defaults to 3 with IRLS
-        (weight refreshes), else 1. Returns (gx, gy, data costs) as numpy
-        maps and floats (the last cost at the solved map)."""
-        _check_ported(self.cfg)
+        on the pipeline's device, over the ranks' shards in a sharded run
+        (the placement's ``solve_map_only``). ``num_iters`` defaults to 3
+        with IRLS (weight refreshes), else 1. Returns (gx, gy, data costs) as
+        numpy maps and floats (the last cost at the solved map)."""
         W = width or 2 * height
         cfg0 = self.cfg.model_config()
         chunk = cfg0.stream_chunk or SUPER_RES_CHUNK
@@ -768,15 +785,17 @@ class EmbaPipeline:
         k = torch.as_tensor(self.traj.knots).to(self.device, self.dtype)
         if num_iters is None:
             num_iters = 3 if mcfg.use_irls else 1
-        gx, gy, costs = model.solve_map_only(k, z, z.clone(), dev, mcfg, num_iters=num_iters)
+        gx, gy, costs = self.placement.solve_map_only(k, z, z.clone(),
+                                                      self.placement.shard(dev), mcfg,
+                                                      num_iters)
         return _host(gx), _host(gy), costs
 
-    def _write_super_res(self, height: int):
+    def _write_super_res(self, height: int, gx, gy, costs):
         """The super-resolution outputs in final_results: Gx_sr.bin,
         Gy_sr.bin, G_hsv_sr.png, poisson_sr.png (reconstructed on the
         pipeline's device) and super_res.json (height, width, data
-        costs), the reference's files."""
-        gx, gy, costs = self.solve_super_res_map(height)
+        costs), the reference's files; ``gx``, ``gy``, ``costs`` from
+        :meth:`solve_super_res_map`."""
         fr = os.path.join(self.result_dir, "final_results")
         eio.save_map_bin(os.path.join(fr, "Gx_sr.bin"), os.path.join(fr, "Gy_sr.bin"),
                          gx, gy)
@@ -798,7 +817,7 @@ class EmbaPipeline:
         window (:func:`retune_compact_cap`), which also repairs an
         undersized cap. The cap stays within :data:`ROWS_LARGE`: active
         pixels past it drop from the solve and are counted as here."""
-        observed = count_active_pixels(knots, gx, gy, dev, mcfg)
+        observed = count_active_pixels(knots, gx, gy, dev, mcfg, self.placement)
         if not stats.active_px_per_form:
             stats.note_active_pixels(observed)
         stats.overflow_active_pixels = max(0, observed - mcfg.compact_cap)
@@ -856,7 +875,7 @@ class EmbaPipeline:
             out = self._solve(win_id, num_events, k0, dev, vcfg, lm, first_window,
                               None, variant=True)
             kv, gxv, gyv, stv, _ = out
-            cost = data_cost_at(kv, gxv, gyv, dev, eval_cfg)
+            cost = data_cost_at(kv, gxv, gyv, dev, eval_cfg, self.placement)
             sel = sm + ("+c2f" if c2f else "")
             self._log(f"win {win_id} multi-start {sel}: data cost {cost}")
             every += coarse + [stv]
@@ -886,10 +905,11 @@ class EmbaPipeline:
             # a mid-window resume restores host-schedule state; the fused
             # loop carries its own: the host loop gives the same results
             fused = False
-        # Fused-window fence: beyond the cap, the host-driven loop (recorded
-        # in runtime.json lm_mode).
+        # Fused-window fence: beyond the cap (events a rank), the
+        # host-driven loop (recorded in runtime.json lm_mode).
+        n_dev = self.comm.world if self.comm is not None else 1
         fallback = (fused and cfg.fused_event_cap is not None
-                    and num_events > cfg.fused_event_cap)
+                    and num_events / n_dev > cfg.fused_event_cap)
         fused = fused and not fallback
         gx0, gy0 = maps if maps is not None else (self.gx, self.gy)
         knots0, gx0, gy0 = convert.state_from_numpy(
@@ -903,7 +923,7 @@ class EmbaPipeline:
                 fix_first=first_window, use_cg=cfg.use_cg,
                 max_num_iter=cfg.max_num_iter,
                 num_times_tol_fun_sat=cfg.num_times_tol_fun_sat,
-                return_trace=True, stats=loop,
+                return_trace=True, stats=loop, placement=self.placement,
             )
             stats = self._stats_from_trace(num_events, n_it, conv, trace,
                                            time.perf_counter() - t0, loop)
@@ -918,7 +938,7 @@ class EmbaPipeline:
             # has no host re-entry).
             ck_every = cfg.lm_checkpoint_every if self.record_data and not variant else 0
             ck_cb = None
-            if ck_every:
+            if ck_every and self._writer:
                 ck_path = os.path.join(self.result_dir, "final_results",
                                        "checkpoint.npz")
 
@@ -930,12 +950,14 @@ class EmbaPipeline:
                 damping_factor=cfg.damping_factor, fix_first=first_window,
                 use_cg=cfg.use_cg, callback=None if variant else cb, checkpoint_cb=ck_cb,
                 checkpoint_every=ck_every, resume_state=resume_lm,
+                placement=self.placement,
             )
             # the window's events, not its padded length (a streamed window)
             stats.num_events = num_events
             last = stats.iterations[-1] if stats.iterations else None
             final_cost = min(last["cost_min"], last["cost_new"]) if last else 0.0
         stats.lm_mode = ("fused" if fused else "host") + (
+            "-sharded" if self.comm is not None else "") + (
             "(fused-cap-fallback)" if fallback else "")
         return knots, gx_j, gy_j, stats, final_cost
 

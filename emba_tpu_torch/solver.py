@@ -14,6 +14,10 @@
   (eager on the CPU) or a cached :class:`lm.GraphedLoop` (CUDA graphs on
   the card), with no per-phase timers.
 
+Both loops run the device work of a window through :class:`Phases`, made
+by the window's placement: :data:`LOCAL` (one device holds the whole
+window) or ``dist.Sharded`` (the window's events split over ranks).
+
 With ``cfg.stream_chunk`` both loops stream: the objective is
 :func:`model.cost_and_activity_streamed` (FULL tier) or
 :func:`model.linearize_streamed_light` (LIGHT tier, ``stream_light``), the
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -165,6 +170,83 @@ def _prev(dev_win, cfg):
     return M.prev_records(dev_win) if cfg.stream_chunk is not None else None
 
 
+def _neq_stats(neq):
+    return neq.active_count, neq.dropped
+
+
+@dataclasses.dataclass(frozen=True)
+class Phases:
+    """The device work of one window's LM loop, shared by the host loop and
+    the device loops:
+
+    * ``objective(knots, Gx, Gy) -> (aux, cost_data, cost_reg)``: the costs
+      at a state and the forming input ``aux``;
+    * ``form(aux, knots, Gx, Gy) -> system``: the normal equations;
+    * ``solve(system, knots, Gx, Gy, lam, early_exit) -> (knots', Gx',
+      Gy', cg_it, cg_err)``: damped solve and trial state (CG's iterations
+      and relative residual, None for the Schur solve);
+    * ``sys_stats(system) -> (active pixels, dropped measurements)``."""
+
+    objective: Callable
+    form: Callable
+    solve: Callable
+    sys_stats: Callable = _neq_stats
+
+
+class Local:
+    """The placement of a window that one device holds whole (the default
+    of both loops). A placement makes a window's :class:`Phases` and its
+    prev records, takes its share of a whole window (``shard``), solves
+    the map-only step on it (``solve_map_only``), and says whether a CUDA window may capture its phases
+    in graphs (``graphs``), whether the CPU loop carries the forming input
+    (``carry_aux``), and what else keys a cached graphed loop (``key``)."""
+
+    graphs = True
+    key = ()
+
+    def prev(self, dev_win, cfg):
+        return _prev(dev_win, cfg)
+
+    def shard(self, dev_win):
+        return dev_win
+
+    def solve_map_only(self, knots, Gx, Gy, dev_win, cfg, num_iters: int = 1):
+        return M.solve_map_only(knots, Gx, Gy, dev_win, cfg, num_iters)
+
+    def carry_aux(self, cfg):
+        return cfg.stream_chunk is not None and not cfg.stream_light
+
+    def num_events(self, dev_win) -> int:
+        return int(dev_win.pol_signed.shape[0])
+
+    def phases(self, dev_win, cfg, num_knots, damping, fix_first, use_cg, prev) -> Phases:
+        init_costs = _objective_fn(cfg, prev)
+
+        def objective(knots, Gx, Gy):
+            return init_costs(knots, Gx, Gy, dev_win, cfg)
+
+        def form(aux, knots, Gx, Gy):
+            return _form(aux, knots, Gx, Gy, dev_win, cfg, num_knots, prev)
+
+        def solve(neq, knots, Gx, Gy, lam, early_exit=True):
+            return _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
+                                 early_exit)
+
+        return Phases(objective=objective, form=form, solve=solve)
+
+    def cost_and_activity(self, knots, Gx, Gy, dev_win, cfg):
+        """(data cost, (HW,) inlier count map) at a state: the light
+        linearization's, or a streamed window's chunked objective's, which
+        holds nothing event-sized."""
+        if cfg.stream_chunk is not None:
+            return M.cost_and_activity_streamed(knots, Gx, Gy, dev_win, cfg)
+        lin = M.linearize(knots, Gx, Gy, dev_win, cfg, need_deriv=False)
+        return M.data_cost(lin.e, cfg), lin.num_ev_map
+
+
+LOCAL = Local()
+
+
 def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
                   early_exit=True):
     """Schur or CG solve + trial state. Returns (knots', Gx', Gy', cg_it,
@@ -213,6 +295,7 @@ def solve_window(
     checkpoint_cb=None,
     checkpoint_every: int = 0,
     resume_state: dict | None = None,
+    placement=LOCAL,
 ):
     """Run LM on (trajectory knots + gradient map) for one window.
 
@@ -229,13 +312,15 @@ def solve_window(
         ``emba_tpu``) to resume from. Every LM decision depends only on the
         restored state and schedule, and forming is deterministic, so the
         resumed run gives the bits of the uninterrupted one.
+      placement: :data:`LOCAL`, or a ``dist.Sharded`` placement with
+        ``dev_win`` this rank's shard; every rank then takes the same steps.
 
     Returns (knots, Gx, Gy, LMStats).
     """
     num_knots = knots.shape[0]
     device = Gx.device
     dt = Gx.dtype
-    stats = LMStats(num_events=int(dev_win.pol_signed.shape[0]))
+    stats = LMStats(num_events=placement.num_events(dev_win))
     sched = lm_mod.HostSchedule(
         tol_fun=lm.tol_fun,
         max_num_iter=lm.max_num_iter,
@@ -256,9 +341,9 @@ def solve_window(
         sched.cost_decreased = resume_state["cost_decreased"]
 
     t_loop0 = time.perf_counter()
-    prev = _prev(dev_win, cfg)
-    init_costs = _objective_fn(cfg, prev)
-    lin, cost_data_t, cost_reg_t = init_costs(knots, Gx, Gy, dev_win, cfg)
+    phases = placement.phases(dev_win, cfg, num_knots, damping_factor, fix_first, use_cg,
+                              placement.prev(dev_win, cfg))
+    lin, cost_data_t, cost_reg_t = phases.objective(knots, Gx, Gy)
     cost_data, cost_reg = float(cost_data_t), float(cost_reg_t)
     stats.time_objective_s += time.perf_counter() - t_loop0
     stats.count_objective += 1
@@ -275,29 +360,27 @@ def solve_window(
         # last step was a reject: forming is deterministic in the state
         if sched.cost_decreased or neq is None:
             t0 = time.perf_counter()
-            neq = _form(lin, knots, Gx, Gy, dev_win, cfg, num_knots, prev)
-            dropped = int(neq.dropped)
+            neq = phases.form(lin, knots, Gx, Gy)
+            active_px, dropped = (int(v) for v in phases.sys_stats(neq))
             _sync(device)
             stats.time_form_s += time.perf_counter() - t0
             stats.count_form += 1
-            stats.note_active_pixels(int(neq.active_count))
+            stats.note_active_pixels(active_px)
             stats.dropped_meas_per_form.append(dropped)
 
         if callback is not None:
             callback(sched.it, Gx, Gy, dict(lam=sched.lam, cost_min=sched.cost_min))
 
         t0 = time.perf_counter()
-        knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(
-            knots, Gx, Gy, neq, sched.lam, damping_factor, fix_first, use_cg
-        )
+        knots_new, gx_new, gy_new, cg_it, cg_err = phases.solve(neq, knots, Gx, Gy,
+                                                                sched.lam)
         _sync(device)
         t1 = time.perf_counter()
         stats.time_solve_s += t1 - t0
         stats.count_solve += 1
 
-        lin_new, cost_data_new_t, cost_reg_new_t = init_costs(
-            knots_new, gx_new, gy_new, dev_win, cfg
-        )
+        lin_new, cost_data_new_t, cost_reg_new_t = phases.objective(knots_new, gx_new,
+                                                                    gy_new)
         cost_data_new = float(cost_data_new_t)
         cost_reg_new = float(cost_reg_new_t)
         stats.time_objective_s += time.perf_counter() - t1
@@ -333,30 +416,24 @@ def solve_window(
     return knots, Gx, Gy, stats
 
 
-def _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                   early_exit, cg_rec, prev=None):
-    """The callables of :func:`lm.lm_while` for one window (``prev``: its
-    prev records when it streams). With ``use_cg``, each solve writes its
-    CG iterations and relative residual into ``cg_rec`` (2,)."""
-
-    init_costs = _objective_fn(cfg, prev)
+def _loop_phases(phases: Phases, use_cg, early_exit, cg_rec):
+    """The callables of :func:`lm.lm_while` from a window's :class:`Phases`.
+    With ``use_cg``, each solve writes its CG iterations and relative
+    residual into ``cg_rec`` (2,)."""
 
     def objective(knots_, gx_, gy_):
-        lin, cost_data, cost_reg = init_costs(knots_, gx_, gy_, dev_win, cfg)
+        lin, cost_data, cost_reg = phases.objective(knots_, gx_, gy_)
         return cost_data + cost_reg, lin
 
-    def form(lin, knots_, gx_, gy_):
-        return _form(lin, knots_, gx_, gy_, dev_win, cfg, num_knots, prev)
-
     def solve_update(neq, knots_, gx_, gy_, lam):
-        knots_new, gx_new, gy_new, cg_it, cg_err = _solve_update(
-            knots_, gx_, gy_, neq, lam, damping, fix_first, use_cg, early_exit)
+        knots_new, gx_new, gy_new, cg_it, cg_err = phases.solve(neq, knots_, gx_, gy_, lam,
+                                                                early_exit)
         if use_cg:
             cg_rec.copy_(torch.stack([cg_it.to(cg_rec.dtype), cg_err.to(cg_rec.dtype)]))
         return knots_new, gx_new, gy_new
 
-    return dict(objective=objective, form=form, solve_update=solve_update,
-                sys_stats=lambda neq: (neq.active_count, neq.dropped))
+    return dict(objective=objective, form=phases.form, solve_update=solve_update,
+                sys_stats=phases.sys_stats)
 
 
 # The graphed loop of the last solve_window_fused call on CUDA, under a key
@@ -368,7 +445,8 @@ _GRAPHED: dict = {}
 
 
 def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
-                    fix_first, use_cg, max_num_iter, num_times_tol_fun_sat):
+                    fix_first, use_cg, max_num_iter, num_times_tol_fun_sat,
+                    placement=LOCAL):
     """The cached (:class:`lm.GraphedLoop`, CG record) of this call's key,
     with ``dev_win`` loaded into the window its graphs read (and, for a
     streamed window, its prev records gathered into theirs)."""
@@ -376,25 +454,24 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
                if getattr(dev_win, f.name) is not None}
     key = (tuple((name, tuple(t.shape), t.dtype) for name, t in tensors.items()),
            tuple(knots.shape), tuple(Gx.shape), Gx.dtype, Gx.device, cfg, damping,
-           tol_fun, fix_first, use_cg, max_num_iter, num_times_tol_fun_sat)
+           tol_fun, fix_first, use_cg, max_num_iter, num_times_tol_fun_sat, placement.key)
     hit = _GRAPHED.get(key)
     if hit is not None:
         win, prev, cg_rec, loop = hit
         for name, t in tensors.items():
             getattr(win, name).copy_(t)
         if prev is not None:
-            for buf, t in zip(prev, M.prev_records(win)):
+            for buf, t in zip(prev, placement.prev(win, cfg)):
                 buf.copy_(t)
         return loop, cg_rec
     _GRAPHED.clear()
     torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
     win = dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
-    prev = _prev(win, cfg)
+    prev = placement.prev(win, cfg)
     cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
+    phases = placement.phases(win, cfg, num_knots, damping, fix_first, use_cg, prev)
     loop = lm_mod.GraphedLoop(
-        knots, Gx, Gy,
-        **_window_phases(win, cfg, num_knots, damping, fix_first, use_cg, False, cg_rec,
-                         prev),
+        knots, Gx, Gy, **_loop_phases(phases, use_cg, False, cg_rec),
         tol_fun=tol_fun, max_num_iter=max_num_iter,
         num_times_tol_fun_sat=num_times_tol_fun_sat)
     _GRAPHED[key] = (win, prev, cg_rec, loop)
@@ -415,6 +492,7 @@ def solve_window_fused(
     num_times_tol_fun_sat: int = 2,
     return_trace: bool = False,
     stats: lm_mod.LoopStats | None = None,
+    placement=LOCAL,
 ):
     """The whole LM window as one loop over device state (counterpart of
     ``emba_tpu.solver.solve_window_fused``): the control flow of
@@ -432,6 +510,9 @@ def solve_window_fused(
     warm-up and no capture (``stats.setup_s`` is 0). ``stats``, if given,
     receives the loop wall time, the forming passes and replays, and with
     ``use_cg`` the CG iterations and relative residual of each solve.
+    ``placement``: as in :func:`solve_window`; a CUDA window runs the
+    graphed loop when its placement's collectives can be captured
+    (``placement.graphs``), else :func:`lm.lm_while`.
 
     Returns (knots, Gx, Gy, cost_min, iterations_used, converged) [+ the
     per-iteration trace when ``return_trace``, see ``lm.TRACE_COLS``].
@@ -441,15 +522,17 @@ def solve_window_fused(
     tol_fun = float(tol_fun)
     sched = dict(tol_fun=tol_fun, max_num_iter=max_num_iter,
                  num_times_tol_fun_sat=num_times_tol_fun_sat)
-    if Gx.device.type == "cuda":
+    if Gx.device.type == "cuda" and placement.graphs:
         loop, cg_rec = _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping,
-                                       fix_first=fix_first, use_cg=use_cg, **sched)
+                                       fix_first=fix_first, use_cg=use_cg,
+                                       placement=placement, **sched)
         run = loop.run
     else:
         cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
-        phases = _window_phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                                True, cg_rec, _prev(dev_win, cfg))
-        carry_aux = cfg.stream_chunk is not None and not cfg.stream_light
+        phases = _loop_phases(
+            placement.phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
+                             placement.prev(dev_win, cfg)), use_cg, True, cg_rec)
+        carry_aux = placement.carry_aux(cfg)
 
         def run(knots, Gx, Gy, **kw):
             return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched, carry_aux=carry_aux,

@@ -18,6 +18,9 @@ import torch
 from . import lie
 
 
+_binom = math.comb  # the reference's name (emba_tpu.spline._binom)
+
+
 def blending_matrix(order: int, cumulative: bool = True) -> np.ndarray:
     """Uniform B-spline blending matrix M (order x order), with
     ``coeff = M @ [1, u, u^2, ...]^T``."""
@@ -95,6 +98,79 @@ def evaluate(knots, s, u, order: int, need_jacobian: bool = True):
         j_out.append(j_helper)
         return res, torch.stack(j_out, dim=1)
     return res
+
+
+def evaluate_derivatives(knots, s, u, dt: float, order: int, degree: int = 2):
+    """Time derivatives of the cumulative SO(3) B-spline in the body frame:
+    angular velocity, acceleration and jerk (counterpart of
+    ``emba_tpu.spline.evaluate_derivatives``; unused by the BA, part of the
+    trajectory layer). With ``R = P_s prod_j A_j``, ``A_j = exp(c_j(u)
+    delta_j)`` about a fixed axis per factor, the forward recursions over
+    the factors are
+
+      V_j   = A_j^T V_{j-1} + cdot_j delta_j
+      Vd_j  = A_j^T Vd_{j-1} - cdot_j delta_j x (A_j^T V_{j-1}) + cddot_j delta_j
+      Vdd_j = A_j^T Vdd_{j-1} - 2 cdot_j delta_j x (A_j^T Vd_{j-1})
+              - cddot_j delta_j x (A_j^T V_{j-1})
+              + cdot_j^2 delta_j x (delta_j x (A_j^T V_{j-1})) + cdddot_j delta_j
+
+    with the c-derivatives from the cumulative blending polynomial and
+    ``du/dt = 1/dt``.
+
+    Args: knots (K, 3, 3); s (Q,) segment starts; u (Q,) offsets; dt the
+    knot spacing [s]; order N >= 2; degree 1 = velocity, 2 = + acceleration,
+    3 = + jerk. Returns (R, omega[, alpha[, jerk]]): R (Q, 3, 3), each
+    derivative (Q, 3), in the dtype and on the device of ``knots``.
+    """
+    dtype, device = knots.dtype, knots.device
+    u = torch.as_tensor(u, dtype=dtype, device=device)
+    s = torch.as_tensor(s, device=device).long()
+    n = order
+    blend = _blend(n, dtype, device)
+
+    def upow(deriv: int):
+        # d^deriv/du^deriv of [1, u, u^2, ...]
+        cols = []
+        for i in range(n):
+            fac = 1.0
+            for k in range(deriv):
+                fac *= i - k
+            cols.append(fac * u ** (i - deriv) if i >= deriv else torch.zeros_like(u))
+        return torch.stack(cols, dim=-1)  # (Q, N)
+
+    coeff = upow(0) @ blend.T
+    dcoeff = (upow(1) @ blend.T) / dt
+    ddcoeff = (upow(2) @ blend.T) / dt**2 if degree >= 2 else None
+    dddcoeff = (upow(3) @ blend.T) / dt**3 if degree >= 3 else None
+
+    idx = s[:, None] + torch.arange(n, device=device)[None, :]
+    P = knots[idx]  # (Q, N, 3, 3)
+    res = P[:, 0]
+    V = Vd = Vdd = torch.zeros(u.shape + (3,), dtype=dtype, device=device)
+    for i in range(n - 1):
+        delta = lie.log(P[:, i].transpose(-1, -2) @ P[:, i + 1])  # (Q, 3)
+        A = lie.exp(coeff[:, i + 1][:, None] * delta)
+        At = A.transpose(-1, -2)
+
+        def rot(x):
+            return torch.einsum("qij,qj->qi", At, x)
+
+        cd = dcoeff[:, i + 1][:, None]
+        tV = rot(V)
+        if degree >= 3:
+            cdd = ddcoeff[:, i + 1][:, None]
+            cddd = dddcoeff[:, i + 1][:, None]
+            tVd = rot(Vd)
+            Vdd = (rot(Vdd) - 2.0 * cd * torch.cross(delta, tVd, dim=-1)
+                   - cdd * torch.cross(delta, tV, dim=-1)
+                   + cd**2 * torch.cross(delta, torch.cross(delta, tV, dim=-1), dim=-1)
+                   + cddd * delta)
+        if degree >= 2:
+            cdd = ddcoeff[:, i + 1][:, None]
+            Vd = rot(Vd) - cd * torch.cross(delta, tV, dim=-1) + cdd * delta
+        V = tV + cd * delta
+        res = res @ A
+    return (res, V) + ((Vd,) if degree >= 2 else ()) + ((Vdd,) if degree >= 3 else ())
 
 
 # ---------------------------------------------------------------------------

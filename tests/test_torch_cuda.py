@@ -431,6 +431,42 @@ def test_cuda_pipeline_two_windows_matches_cpu_f64(cuda_device, tmp_path, fused)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_two_rank_gloo_pipeline_matches_cpu_f64(cuda_device, tmp_path, fused):
+    """The tiny two-window pipeline with num_devices=2: two ranks on the one
+    card over gloo (tensors staged through the host), f32, against one
+    device on the CPU in f64: the same windows, the sharded LM mode, knots
+    within 1e-3; each rank's A12 launches equal its forming passes."""
+    import _torch_dist_worker as W
+    from emba_tpu_torch import cli, config, dist, pipeline
+    from emba_tpu_torch import io as eio
+    from emba_tpu_torch.camera import load_camera_yaml
+
+    cli.main(["synth", "--out", str(tmp_path), "--sensor", "40", "--pano-height", "64",
+              "--duration", "0.6", "--steps", "300", "--motion", "0.2", "--c-th", "0.1"])
+    kw = dict(start_time=0.0, stop_time=0.6, c_th=0.1, alpha=0.5, max_num_iter=3,
+              dt_knots=0.05, time_window_size=0.3, sliding_window_stride=0.3,
+              fused_lm=fused)
+    gx, gy = eio.load_map_bin(str(tmp_path / "Gx.bin"), str(tmp_path / "Gy.bin"))
+    ref = pipeline.EmbaPipeline(
+        config.BAConfig(**kw, dtype="float64"), load_camera_yaml(str(tmp_path / "calib.yaml")),
+        eio.load_events_npz(str(tmp_path / "events.npz"))[:4],
+        *eio.load_tum_trajectory(str(tmp_path / "traj_gt.txt")), init_gx=gx.copy(),
+        init_gy=gy.copy(), device="cpu").run()
+    ranks = dist.spawn(W.pipeline_rank, 2, "gloo", device="cuda", timeout_s=600, args=(
+        str(tmp_path), [("run", {**kw, "dtype": "float32"}, {}, None)], "cuda"))
+    res = ranks[0]["run"]
+    assert len(res.window_stats) == len(ref.window_stats) == 2
+    mode = ("fused" if fused else "host") + "-sharded"
+    assert [st.lm_mode for st in res.window_stats] == [mode] * 2
+    for r in ranks:
+        assert r["a12_launches"]["run"] == sum(st.count_form for st in r["run"].window_stats)
+        np.testing.assert_array_equal(r["run"].trajectory.knots, res.trajectory.knots)
+    assert np.max(np.abs(res.trajectory.knots - ref.trajectory.knots)) <= 1e-3
+    assert np.isfinite(res.gx).all() and np.isfinite(res.gy).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("light", [False, True])
 def test_cuda_streamed_window_follows_host_loop(cuda_device, light):
     """A streamed window (chunks of 2^16 events on a window padded to a

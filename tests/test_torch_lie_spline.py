@@ -130,3 +130,22 @@ def test_trajectory_methods_match(tmp_path):
     got = np.loadtxt(tmp_path / "p.txt")
     want = np.loadtxt(tmp_path / "j.txt")
     assert np.max(np.abs(got - want)) <= 1e-12
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("order", [2, 3, 4])
+def test_evaluate_derivatives_matches_jax(order, degree):
+    """Body-frame angular velocity, acceleration and jerk against JAX's
+    recursion, to 1e-12 of each output's largest magnitude; ``_binom``
+    against JAX's."""
+    rng = np.random.default_rng(10 * order + degree)
+    knots = tspline._np_exp(rng.normal(size=(order + 5, 3)) * 0.5)
+    s = rng.integers(0, 6, size=9).astype(np.int32)
+    u = rng.random(9)
+    want = jspline.evaluate_derivatives(knots, s, u, 0.2, order, degree)
+    got = tspline.evaluate_derivatives(torch.from_numpy(knots), s, u, 0.2, order, degree)
+    assert len(got) == len(want) == degree + 1
+    for g, w in zip(got, want):
+        assert_rel(g.numpy(), np.asarray(w))
+    assert all(tspline._binom(n, k) == jspline._binom(n, k)
+               for n in range(7) for k in range(n + 1))

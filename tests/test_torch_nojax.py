@@ -5,7 +5,11 @@ classic and in both streamed tiers, runs the map-only solve, the CLI's
 ``synth`` and ``run --device cpu`` on a tiny scene (streamed, with the
 super-resolution map) and one streamed multi-start row of the accuracy
 suite (``eval_suite``, with ``poses`` and ``viz`` imported), and must have
-loaded neither ``jax`` nor the JAX package ``emba_tpu``."""
+loaded neither ``jax`` nor the JAX package ``emba_tpu``. A second fresh
+interpreter runs ``dist.dryrun`` (every sharded configuration on two gloo
+CPU ranks, spawned processes of their own) and imports the sharded tests'
+rank module ``tests/_torch_dist_worker.py``; neither it nor a spawned rank
+may load them either."""
 
 import os
 import subprocess
@@ -84,6 +88,29 @@ print("JAX_MODULES", loaded)
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+DIST_SCRIPT = r"""
+import os, sys
+import torch
+torch.set_num_threads(1)
+from emba_tpu_torch import dist
+dist.dryrun(2, "gloo", device="cpu")
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import _torch_dist_worker as W
+assert dist.spawn(W.jax_modules_rank, 2, "gloo", device="cpu") == [[], []]
+loaded = sorted(m for m in sys.modules
+                if m in ("jax", "emba_tpu") or m.startswith(("jax.", "jaxlib", "emba_tpu.")))
+print("JAX_MODULES", loaded)
+"""
+
+
+def test_dist_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", DIST_SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "JAX_MODULES []" in res.stdout, res.stdout

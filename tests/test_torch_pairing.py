@@ -36,3 +36,23 @@ def test_prev_index_matches_jax_package_with_repeats():
     got = TP.compute_prev_index(x, y, 4)
     np.testing.assert_array_equal(got, JP.compute_prev_index(x, y, 4))
     assert got[0] == -1 and (got < np.arange(5000)).all()
+
+
+def test_time_and_count_maps_match_jax_package():
+    """``time_map`` and ``event_count_map`` against JAX's on a window with
+    repeated pixels: the same arrays, exactly."""
+    sensor = jsynth.default_sensor(32, 24, f=30.0)
+    scene = jsynth.generate(np.random.default_rng(3), sensor, pano_width=96,
+                            pano_height=48, c_th=0.2, t_end=0.4, dt_knots=0.05,
+                            num_steps=80, motion_amp=0.3)
+    win = TP.build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width,
+                          scene.traj.locate, 50)
+    jwin = JP.build_window(scene.t, scene.x, scene.y, scene.pol, sensor.width,
+                           scene.traj.locate, 50)
+    t0 = float(scene.t[0])
+    got = TP.time_map(win, 32, 24, t0)
+    assert np.array_equal(got, JP.time_map(jwin, 32, 24, t0))
+    counts = TP.event_count_map(win, 32, 24)
+    assert counts.dtype == np.int32
+    assert np.array_equal(counts, JP.event_count_map(jwin, 32, 24))
+    assert counts.sum() == win.num_events and counts.max() > 1

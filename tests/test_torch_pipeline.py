@@ -282,14 +282,36 @@ def test_resume_from_jax_checkpoint(dataset, tmp_path):
     assert len(t.window_stats[0].iterations) == len(j.window_stats[0].iterations) >= 1
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("num_devices", 2, "item 14"),
-])
-def test_unported_options_raise(dataset, option, value, item):
-    cfg = TC.BAConfig(**ONE)
-    setattr(cfg, option, value)
-    with pytest.raises(NotImplementedError, match=item):
-        port_pipe(dataset, cfg).run()
+@pytest.fixture(scope="module")
+def sharded_runs(dataset):
+    """The port's pipeline with num_devices=2 on two gloo CPU ranks, each
+    case fused and host, run once (``_torch_dist_worker.pipeline_rank``)."""
+    from emba_tpu_torch import dist
+
+    import _torch_dist_worker as W
+
+    runs = [(f"{case}-{mode}", {**CASES[case], "fused_lm": mode == "fused"}, {}, None)
+            for case in CASES for mode in ("fused", "host")]
+    return dist.spawn(W.pipeline_rank, 2, "gloo", args=(str(dataset["dir"]), runs),
+                      device="cpu", timeout_s=300)
+
+
+@pytest.mark.parametrize("mode", ["fused", "host"])
+@pytest.mark.parametrize("case", ["one", "two"])
+def test_sharded_pipeline_matches_jax(dataset, sharded_runs, case, mode):
+    """num_devices=2: every window solved sharded over two ranks, against
+    JAX's pipeline with num_devices=2 (a (2, 1) mesh of the virtual CPU
+    devices); both ranks return the same result. Without a process group
+    of two ranks the pipeline raises rather than run on one device."""
+    cfg = {**CASES[case], "fused_lm": mode == "fused"}
+    j = jax_pipe(dataset, JC.BAConfig(**cfg, num_devices=2)).run()
+    t, t1 = (r[f"{case}-{mode}"] for r in sharded_runs)
+    assert_runs_match(t, j)
+    assert [st.lm_mode for st in t.window_stats] == [f"{mode}-sharded"] * len(j.window_stats)
+    np.testing.assert_array_equal(t1.trajectory.knots, t.trajectory.knots)
+    np.testing.assert_array_equal(t1.gx, t.gx)
+    with pytest.raises(RuntimeError, match="process group"):
+        port_pipe(dataset, TC.BAConfig(**cfg, num_devices=2))
 
 
 STREAMED = {
