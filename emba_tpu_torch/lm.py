@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, obs
 
 LAMBDA_INIT = 1e-3
 LAMBDA_MIN = 1e-300
@@ -182,7 +182,10 @@ class CapturedPhase:
     pool, rewritten by every :meth:`replay`. The capture launches nothing,
     so the kernel launch counts it moved are restored, and each replay adds
     them again: a replay is where a captured kernel really runs. A capture
-    that fails raises."""
+    that fails raises. ``name`` is the phase's (set by :class:`GraphedLoop`);
+    while a profiler records, a replay runs in the range ``emba.lm.<name>``,
+    and every kernel the replay launches carries that range's graph
+    launch."""
 
     def __init__(self, fn):
         before = kernels.launch_counts()
@@ -193,9 +196,14 @@ class CapturedPhase:
         kernels.set_launch_counts(before)
         self.launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
         self.replays = 0
+        self.name = "phase"
 
     def replay(self):
-        self.graph.replay()
+        if obs.profiling():
+            with torch.profiler.record_function(f"{obs.PREFIX}lm.{self.name}"):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         kernels.add_launches(self.launches)
         self.replays += 1
 
@@ -250,6 +258,10 @@ class GraphedLoop:
     well (:func:`lm_while` with ``carry_aux``), only so that XLA does not
     hold A12 double-buffered across its while loop, and a graph's outputs
     are static buffers, so the card gains no memory from it.
+
+    In the run record (:mod:`obs`): the build is the span ``lm.capture``,
+    each host read of the status the repeating span ``lm.status_wait``, and
+    each run adds its replays of each phase to ``lm.replays.<phase>``.
     """
 
     def __init__(self, knots, Gx, Gy, *, objective, form, solve_update,
@@ -257,53 +269,58 @@ class GraphedLoop:
                  num_times_tol_fun_sat: int):
         sys_stats = sys_stats or _no_sys_stats
         device = Gx.device
-        t0 = time.perf_counter()
-        self.max_num_iter = max_num_iter
-        self.state = state = [t.clone() for t in (knots, Gx, Gy)]
-        self.trial = trial = [t.clone() for t in (knots, Gx, Gy)]
-        lam, cost_min, count_tol, it, converged, trace = _schedule_state(
-            torch.zeros((), dtype=Gx.dtype, device=device), max_num_iter, Gx.dtype,
-            device)
-        self.sched = (lam, cost_min, count_tol, it, converged, trace)
-        status = self.status = torch.zeros(2, dtype=torch.int32, device=device)
+        with obs.span("lm.capture"):  # the warm-up and the four captures
+            t0 = time.perf_counter()
+            self.max_num_iter = max_num_iter
+            self.state = state = [t.clone() for t in (knots, Gx, Gy)]
+            self.trial = trial = [t.clone() for t in (knots, Gx, Gy)]
+            lam, cost_min, count_tol, it, converged, trace = _schedule_state(
+                torch.zeros((), dtype=Gx.dtype, device=device), max_num_iter, Gx.dtype,
+                device)
+            self.sched = (lam, cost_min, count_tol, it, converged, trace)
+            status = self.status = torch.zeros(2, dtype=torch.int32, device=device)
 
-        def warm_up():
-            cost, aux = objective(*trial)
-            sys = form(aux, *state)
-            solve_update(sys, *state, lam)
-            schedule_step(lam, cost, count_tol, cost, tol_fun, num_times_tol_fun_sat)
+            def warm_up():
+                cost, aux = objective(*trial)
+                sys = form(aux, *state)
+                solve_update(sys, *state, lam)
+                schedule_step(lam, cost, count_tol, cost, tol_fun, num_times_tol_fun_sat)
 
-        _warm_up(warm_up, device)
+            _warm_up(warm_up, device)
 
-        self.g_obj = CapturedPhase(lambda: objective(*trial))
-        cost_new, aux = self.g_obj.out
-        self.cost_new = cost_new
-        self.g_form = CapturedPhase(lambda: form(aux, *state))
-        sys = self.g_form.out
+            self.g_obj = CapturedPhase(lambda: objective(*trial))
+            self.g_obj.name = "objective"
+            cost_new, aux = self.g_obj.out
+            self.cost_new = cost_new
+            self.g_form = CapturedPhase(lambda: form(aux, *state))
+            self.g_form.name = "form"
+            sys = self.g_form.out
 
-        def solve():
-            for buf, new in zip(trial, solve_update(sys, *state, lam)):
-                buf.copy_(new)
+            def solve():
+                for buf, new in zip(trial, solve_update(sys, *state, lam)):
+                    buf.copy_(new)
 
-        def schedule():
-            accept, lam_new, cost_min_new, count_tol_new, converged_new = schedule_step(
-                lam, cost_min, count_tol, cost_new, tol_fun, num_times_tol_fun_sat)
-            _record(trace, it, lam, cost_min, cost_new, accept, *sys_stats(sys))
-            for buf, new in zip(state, trial):
-                buf.copy_(torch.where(accept, new, buf))
-            lam.copy_(lam_new)
-            cost_min.copy_(cost_min_new)
-            count_tol.copy_(count_tol_new)
-            converged.copy_(converged_new)
-            it.add_(1)
-            running = keep_running(lam, cost_min, it, converged, max_num_iter)
-            status.copy_(torch.stack([running, accept]).to(torch.int32))
+            def schedule():
+                accept, lam_new, cost_min_new, count_tol_new, converged_new = schedule_step(
+                    lam, cost_min, count_tol, cost_new, tol_fun, num_times_tol_fun_sat)
+                _record(trace, it, lam, cost_min, cost_new, accept, *sys_stats(sys))
+                for buf, new in zip(state, trial):
+                    buf.copy_(torch.where(accept, new, buf))
+                lam.copy_(lam_new)
+                cost_min.copy_(cost_min_new)
+                count_tol.copy_(count_tol_new)
+                converged.copy_(converged_new)
+                it.add_(1)
+                running = keep_running(lam, cost_min, it, converged, max_num_iter)
+                status.copy_(torch.stack([running, accept]).to(torch.int32))
 
-        self.g_solve = CapturedPhase(solve)
-        self.g_sched = CapturedPhase(schedule)
-        # what the first run reports as its set-up: these seconds and the
-        # warm-up's forming pass
-        self._setup = (time.perf_counter() - t0, 1)
+            self.g_solve = CapturedPhase(solve)
+            self.g_solve.name = "solve"
+            self.g_sched = CapturedPhase(schedule)
+            self.g_sched.name = "schedule"
+            # what the first run reports as its set-up: these seconds and the
+            # warm-up's forming pass
+            self._setup = (time.perf_counter() - t0, 1)
 
     def run(self, knots, Gx, Gy, *, on_step=None, stats: LoopStats | None = None):
         """Solve from (knots, Gx, Gy): the return of :func:`lm_while`, in
@@ -331,7 +348,9 @@ class GraphedLoop:
             self.g_solve.replay()
             self.g_obj.replay()
             self.g_sched.replay()
-            running, accepted = self.status.tolist()
+            # the host waits here for the step's device work
+            with obs.span("lm.status_wait", repeats=True):
+                running, accepted = self.status.tolist()
             if on_step is not None:
                 on_step()
             if running and accepted:
@@ -340,6 +359,8 @@ class GraphedLoop:
             torch.cuda.synchronize(device)
         setup_s, warm_forms = self._setup
         self._setup = (0.0, 0)
+        for k, g in phases.items():
+            obs.count(f"lm.replays.{k}", g.replays)
         if stats is not None:
             stats.setup_s = setup_s
             stats.loop_s = time.perf_counter() - t1

@@ -37,6 +37,7 @@ import torch
 
 from . import lm as lm_mod
 from . import model as M
+from . import obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -449,7 +450,9 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
                     placement=LOCAL):
     """The cached (:class:`lm.GraphedLoop`, CG record) of this call's key,
     with ``dev_win`` loaded into the window its graphs read (and, for a
-    streamed window, its prev records gathered into theirs)."""
+    streamed window, its prev records gathered into theirs). Counts, in the
+    run record (:mod:`obs`), ``lm.graph_hit`` for a cached loop, else
+    ``lm.graph_capture`` and, when it drops the cached one, ``lm.graph_evict``."""
     tensors = {f.name: getattr(dev_win, f.name) for f in dataclasses.fields(dev_win)
                if getattr(dev_win, f.name) is not None}
     key = (tuple((name, tuple(t.shape), t.dtype) for name, t in tensors.items()),
@@ -457,6 +460,7 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
            tol_fun, fix_first, use_cg, max_num_iter, num_times_tol_fun_sat, placement.key)
     hit = _GRAPHED.get(key)
     if hit is not None:
+        obs.count("lm.graph_hit")
         win, prev, cg_rec, loop = hit
         for name, t in tensors.items():
             getattr(win, name).copy_(t)
@@ -464,6 +468,9 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
             for buf, t in zip(prev, placement.prev(win, cfg)):
                 buf.copy_(t)
         return loop, cg_rec
+    if _GRAPHED:
+        obs.count("lm.graph_evict")
+    obs.count("lm.graph_capture")
     _GRAPHED.clear()
     torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
     win = dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})

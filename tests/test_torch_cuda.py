@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from emba_tpu_torch import kernels, lm, solver, spline, synth
+from emba_tpu_torch import kernels, lm, obs, solver, spline, synth
 from emba_tpu_torch.pairing import build_window
 from emba_tpu_torch import model as TM
 from emba_tpu_torch.kernels import a12_accum as TK
@@ -387,6 +387,43 @@ def test_cuda_fused_window_follows_host_loop(cuda_device):
     assert again.setup_s == 0.0 and again.form_passes == stats.form_passes - 1
     assert kernels.launch_counts()["a12_accum"] == again.form_passes
     assert all(torch.equal(a, b) for a, b in zip(out, (k, gx, gy, cost, it, conv, trace)))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cache_counters(cuda_device, monkeypatch):
+    """The graphed window's cache in the run record on the card: a second
+    window of the same shapes is a hit, a window of other shapes a capture
+    and an evict; each build is an lm.capture span and each step's host
+    read of the status an lm.status_wait."""
+    monkeypatch.setattr(solver, "_GRAPHED", {})
+    sensor = synth.default_sensor(48, 48, f=44.0)
+    scene = synth.generate(np.random.default_rng(11), sensor, pano_width=128,
+                           pano_height=64, c_th=0.2, t_end=0.5, dt_knots=0.05,
+                           num_steps=120, motion_amp=0.3)
+    cfg = TM.ModelConfig(c_th=0.2, pano_width=128, pano_height=64,
+                         thres_valid_pixel=3, alpha=2.0)
+    start = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+             for a in (scene.traj.knots, scene.gx, scene.gy)]
+
+    def window(n):
+        win = build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
+                           sensor.width, scene.traj.locate, 100)
+        return TM.DeviceWindow.from_window(win, sensor.bearing_lut(), sensor.width,
+                                           torch.float32, cuda_device)
+
+    full, half = window(len(scene.t)), window(len(scene.t) // 2)
+    rec = obs.Record()
+    steps = 0
+    with obs.recording(rec):
+        for win in (full, full, half):
+            out = solver.solve_window_fused(*start, win, cfg, 1.0, 1e-3, fix_first=True,
+                                            max_num_iter=4)
+            steps += int(out[4])
+    rec.finish()
+    assert {k: v for k, v in rec.counters.items() if k.startswith("lm.graph")} == {
+        "lm.graph_capture": 2, "lm.graph_hit": 1, "lm.graph_evict": 1}
+    assert [s.name for s in rec.spans] == ["lm.capture", "lm.capture"]
+    assert rec.repeats["lm.status_wait"][1] == rec.counters["lm.replays.solve"] == steps
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from emba_tpu import lm as JL
-from emba_tpu_torch import kernels, pairing
+from emba_tpu_torch import kernels, obs, pairing
 from emba_tpu_torch import lm as TL
 from emba_tpu_torch import model as TM
 from emba_tpu_torch import solver as TS
@@ -229,6 +229,43 @@ def test_cached_graphed_window_runs_windows_like_lm_while(eager_graphs, monkeypa
     assert loops[0] is loops[1] and len(TS._GRAPHED) == 1
     assert not torch.equal(TS._GRAPHED[next(iter(TS._GRAPHED))][0].pol_signed,
                            dev.pol_signed)
+
+
+def test_graphed_window_cache_counts_in_the_run_record(eager_graphs, monkeypatch):
+    """The cached graphed window in the run record (graphs replaced by the
+    eager stand-in): the first window captures, a second of the same shapes
+    hits, a window of other shapes captures again and evicts the first;
+    each build is an lm.capture span, each run adds its replays of each
+    phase, and each host read of the status is an lm.status_wait."""
+    monkeypatch.setattr(TS, "_GRAPHED", {})
+    scene, dev = small_window()
+    sensor = synth.default_sensor(48, 48, f=44.0)
+    n = len(scene.t) // 2
+    fewer = TM.DeviceWindow.from_window(
+        pairing.build_window(scene.t[:n], scene.x[:n], scene.y[:n], scene.pol[:n],
+                             sensor.width, scene.traj.locate, 100),
+        sensor.bearing_lut(), sensor.width, torch.float64, "cpu")
+    cfg = TM.ModelConfig(c_th=0.2, pano_width=128, pano_height=64,
+                         thres_valid_pixel=3, alpha=2.0)
+    settings = dict(tol_fun=1e-3, fix_first=True, use_cg=False, max_num_iter=4,
+                    num_times_tol_fun_sat=2)
+    start = [torch.from_numpy(a) for a in (scene.traj.knots, scene.gx, scene.gy)]
+    rec = obs.Record()
+    replays = []
+    with obs.recording(rec):
+        for win in (dev, dev, fewer):
+            loop, _cg = TS._graphed_window(*start, win, cfg, start[0].shape[0], 1.0,
+                                           **settings)
+            stats = TL.LoopStats()
+            loop.run(*start, stats=stats)
+            replays.append(stats.replays)
+    rec.finish()
+    lm_counts = {k: v for k, v in rec.counters.items() if k.startswith("lm.graph")}
+    assert lm_counts == {"lm.graph_capture": 2, "lm.graph_hit": 1, "lm.graph_evict": 1}
+    for phase in ("objective", "form", "solve", "schedule"):
+        assert rec.counters[f"lm.replays.{phase}"] == sum(r[phase] for r in replays)
+    assert [s.name for s in rec.spans] == ["lm.capture", "lm.capture"]
+    assert rec.repeats["lm.status_wait"][1] == sum(r["solve"] for r in replays)
 
 
 def test_schedule_step_and_keep_running():

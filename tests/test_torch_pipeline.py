@@ -129,8 +129,8 @@ def test_pipeline_matches_jax(dataset, jax_runs, case, mode):
 
 def test_cli_end_to_end_matches_jax(dataset, tmp_path, capsys):
     """synth -> run -> eval through both CLIs on the same files: the port's
-    runtime.json has JAX's keys plus setup_s, and its eval RMSE equals
-    JAX's."""
+    runtime.json has JAX's keys plus setup_s and the run record's spans_s
+    and counters, and its eval RMSE equals JAX's."""
     d = dataset["dir"]
     args = ["run", "--events", str(d / "events.npz"), "--poses", str(d / "traj_gt.txt"),
             "--map-gx", str(d / "Gx.bin"), "--map-gy", str(d / "Gy.bin"), "--calib",
@@ -150,7 +150,7 @@ def test_cli_end_to_end_matches_jax(dataset, tmp_path, capsys):
     assert (tmp_path / "t" / "params.txt").exists()
     rt_t = json.loads((fr["t"] / "runtime.json").read_text())
     rt_j = json.loads((fr["j"] / "runtime.json").read_text())
-    assert set(rt_t) == set(rt_j) | {"setup_s"}
+    assert set(rt_t) == set(rt_j) | {"setup_s", "spans_s", "counters"}
     assert rt_t["lm_mode"] == rt_j["lm_mode"] == ["host"]
     assert rt_t["num_active_pixels"] == rt_j["num_active_pixels"]
     assert rt_t["phase_counts"] == rt_j["phase_counts"]
@@ -493,6 +493,98 @@ def test_fused_event_cap_fallback(dataset, tmp_path):
     np.testing.assert_array_equal(res.trajectory.knots, host.trajectory.knots)
     big = port_pipe(dataset, TC.BAConfig(**kw, fused_lm=True, fused_event_cap=10**9)).run()
     assert big.window_stats[0].lm_mode == "fused"
+
+
+# a span's end is its time.time_ns() start plus its perf_counter_ns()
+# duration: ends compare within this
+CLOCK_NS = 100_000
+PIPELINE_SPANS = ("pipeline.init", "init.sort_cut", "init.map_filter", "init.bearing_lut",
+                  "pipeline.run", "window.prep_wait", "window.prepare", "prepare.cut",
+                  "prepare.pose_fit", "prepare.pairing", "window.upload", "window.solve",
+                  "window.result")
+
+
+def assert_counters_match(rec, res):
+    c = rec.counters
+    assert c["windows"] == len(res.window_stats)
+    assert c["window.events"] == sum(st.num_events for st in res.window_stats)
+    assert c["lm.steps"] == sum(len(st.iterations) for st in res.window_stats)
+
+
+def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
+    """One window, fused: the pipeline's run record (obs) holds every span of
+    the constructor, the run and the window, each stage after the one it
+    waits for, the preparation on the worker thread; its counters equal the
+    LMStats; pipeline.init and pipeline.run cover the job."""
+    from emba_tpu_torch import obs
+
+    pipe = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True))
+    res = pipe.run()
+    rec = obs.runs()[-1]
+    assert rec is pipe.record and rec.end_ns is not None
+    assert [s.name for s in rec.spans if s.name in PIPELINE_SPANS] == [
+        "init.sort_cut", "init.map_filter", "init.bearing_lut", "pipeline.init",
+        "prepare.cut", "prepare.pose_fit", "prepare.pairing", "window.prepare",
+        "window.prep_wait", "window.upload", "window.solve", "window.result",
+        "pipeline.run"]
+    s = {sp.name: sp for sp in rec.spans}
+    init, run, prep = s["pipeline.init"], s["pipeline.run"], s["window.prepare"]
+    for name in ("init.sort_cut", "init.map_filter", "init.bearing_lut"):
+        assert s[name].parent == init.id
+    for name in ("prepare.cut", "prepare.pose_fit", "prepare.pairing"):
+        assert s[name].parent == prep.id and s[name].thread == prep.thread
+    for name in ("window.prepare", "window.prep_wait", "window.upload", "window.solve",
+                 "window.result"):
+        assert s[name].parent == run.id
+    assert init.parent is None and run.parent is None
+    assert prep.thread != rec.thread == run.thread == init.thread
+    order = ["pipeline.init", "window.prep_wait", "window.upload", "window.solve",
+             "window.result"]
+    for a, b in zip(order, order[1:]):
+        assert s[a].end_ns <= s[b].start_ns + CLOCK_NS, (a, b)
+    assert init.end_ns <= run.start_ns + CLOCK_NS <= prep.start_ns + 2 * CLOCK_NS
+    assert prep.end_ns <= s["window.prep_wait"].end_ns + CLOCK_NS
+    for a, b in (("prepare.cut", "prepare.pose_fit"), ("prepare.pose_fit",
+                                                      "prepare.pairing")):
+        assert s[a].end_ns <= s[b].start_ns + CLOCK_NS
+    assert rec.start_ns <= init.start_ns and run.end_ns <= rec.end_ns + CLOCK_NS
+    assert_counters_match(rec, res)
+    assert rec.counters["launches.a12_accum"] == 0  # the CPU runs the plain version
+    tot = rec.totals()
+    assert 0 <= tot["pipeline.run"]["self_s"] < tot["pipeline.run"]["total_s"]
+    assert tot["window.prepare"]["total_s"] > 0 and tot["window.prep_wait"]["count"] == 1
+
+
+def test_recording_run_writes_prep_times_from_its_spans(dataset, tmp_path):
+    """Two windows through the host loop, recording: runtime.json's
+    window_prep_s and window_prep_wait_s are the run record's spans, one a
+    window, with spans_s and counters beside them; a second run of the
+    same pipeline gets a record of its own."""
+    from emba_tpu_torch import obs
+
+    pipe = port_pipe(dataset, TC.BAConfig(**TWO, fused_lm=False),
+                     result_dir=str(tmp_path / "rec"), record_data=True)
+    res = pipe.run()
+    rec = obs.runs()[-1]
+    assert rec is pipe.record
+    rt = json.loads((tmp_path / "rec" / "final_results" / "runtime.json").read_text())
+    assert rt["window_prep_s"] == [sp.dur_ns * 1e-9 for sp in rec.named("window.prepare")]
+    assert rt["window_prep_wait_s"] == [sp.dur_ns * 1e-9
+                                        for sp in rec.named("window.prep_wait")]
+    assert len(rt["window_prep_s"]) == len(rt["window_prep_wait_s"]) == 2
+    assert all(p > 0 for p in rt["window_prep_s"])
+    assert {"pipeline.init", "window.prepare", "window.solve", "pipeline.write"} <= set(
+        rt["spans_s"])
+    assert rt["spans_s"]["window.solve"]["count"] == 2
+    for t in rt["spans_s"].values():
+        assert 0 <= t["self_s"] <= t["total_s"] + CLOCK_NS * 1e-9
+    assert_counters_match(rec, res)
+    assert {k: v for k, v in rec.counters.items()
+            if not k.startswith("launches.")} == rt["counters"]
+    again = pipe.run(resume_from=str(tmp_path / "rec" / "final_results" / "checkpoint.npz"))
+    assert obs.runs()[-1] is pipe.record is not rec
+    assert pipe.record.counters.get("windows", 0) == len(again.window_stats) == 0
+    assert [sp.name for sp in pipe.record.spans][-1] == "pipeline.run"
 
 
 def test_nan_debug_names_the_window(dataset):
