@@ -33,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import lie, warp
+from . import lie, obs, warp
 from .camera import EquirectangularCamera
 from .device import add_at
 from .kernels import a12_accum
@@ -135,34 +135,91 @@ class DeviceWindow:
     @classmethod
     def from_window(cls, win, bearing_lut: np.ndarray, sensor_width: int, dtype,
                     device, pad_multiple: int = 1):
-        """Move a ``pairing.EventWindow`` to ``device``. ``pad_multiple``:
-        pad the per-event arrays to a multiple of this length (a streamed
-        window's ``stream_chunk``, so that its last chunk is full). Padding
-        slots are non-measurements: a unit-z bearing (a zero bearing warps
-        to NaN), ``has_prev=False`` (an inlier nowhere), batch 0."""
-        spix = win.sensor_flat_idx(sensor_width)
-        n = len(spix)
-        pad = -(-n // pad_multiple) * pad_multiple - n
+        """Build a ``pairing.EventWindow``'s device arrays on ``device``.
+        Only its raw columns (x and y as int32, pol as int8: 9 bytes an
+        event), its per-batch arrays and ``bearing_lut`` in ``dtype`` are
+        copied (span ``upload.copy``, counter ``window.upload_bytes``); the
+        sensor pixels, the pairing (:func:`pair_by_pixel`), the bearings (a
+        gather of the LUT), the polarity signs and the batch ids are
+        computed on ``device`` (span ``upload.pair``), equal bit for bit to
+        the host's (a cast then a gather is a gather then a cast; the rest
+        is integer or +-1). The window's own ``prev_idx`` is not read.
 
-        def t(a, dt, v=0):
-            if pad:
-                a = np.concatenate([a, np.full(pad, v, a.dtype)])
-            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+        The window's arrays are allocated first, in their final sizes, and
+        the columns are copied into them (x into ``prev_idx``, y into
+        ``sensor_pix``, pol into ``has_prev``) and consumed there, so the
+        build holds no event-sized array beyond the window's own but the
+        pairing's chunk (:data:`PAIR_CHUNK`).
 
-        b = bearing_lut[spix].T
-        if pad:
-            b = np.concatenate([b, np.tile(np.array([[0.0], [0.0], [1.0]], b.dtype), pad)],
-                               axis=1)
-        return cls(
-            bearings=torch.as_tensor(np.ascontiguousarray(b)).to(device=device, dtype=dtype),
-            pol_signed=t(2.0 * (win.pol.astype(np.float64) - 0.5), dtype),
-            prev_idx=t(np.maximum(win.prev_idx, 0).astype(np.int32), torch.int32),
-            has_prev=t(win.prev_idx >= 0, torch.bool, False),
-            batch_ids=t(win.batch_ids().astype(np.int32), torch.int32),
-            batch_s=torch.as_tensor(win.batch_s.astype(np.int32)).to(device),
-            batch_u=torch.as_tensor(np.asarray(win.batch_u)).to(device=device, dtype=dtype),
-            sensor_pix=t(spix.astype(np.int32), torch.int32),
-        )
+        ``pad_multiple``: pad the per-event arrays to a multiple of this
+        length (a streamed window's ``stream_chunk``, so that its last chunk
+        is full). Padding slots are non-measurements: a unit-z bearing (a
+        zero bearing warps to NaN), ``has_prev=False`` (an inlier nowhere),
+        batch 0."""
+        n, nb = win.num_events, len(win.batch_s)
+        n_pad = -(-n // pad_multiple) * pad_multiple
+
+        def empty(*shape, dt=torch.int32):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        dev = cls(bearings=empty(3, n_pad, dt=dtype), pol_signed=empty(n_pad, dt=dtype),
+                  prev_idx=empty(n_pad), has_prev=empty(n_pad, dt=torch.bool),
+                  batch_ids=empty(n_pad), batch_s=empty(nb), batch_u=empty(nb, dt=dtype),
+                  sensor_pix=empty(n_pad))
+        pol = dev.has_prev.view(torch.int8)[:n]
+        with obs.span("upload.copy"):
+            lut = torch.from_numpy(np.ascontiguousarray(np.asarray(bearing_lut).T)).to(dtype)
+            copies = [(dst, torch.from_numpy(np.ascontiguousarray(a, dt))) for dst, a, dt in (
+                (dev.prev_idx[:n], win.x, np.int32), (dev.sensor_pix[:n], win.y, np.int32),
+                (pol, win.pol, np.int8), (dev.batch_s, win.batch_s, np.int32))]
+            copies.append((dev.batch_u, torch.from_numpy(np.asarray(win.batch_u)).to(dtype)))
+            obs.count("window.upload_bytes", lut.nbytes + sum(src.nbytes for _, src in copies))
+            for dst, src in copies:
+                dst.copy_(src)
+            lut = lut.to(device)
+
+        with obs.span("upload.pair"):
+            spix = dev.sensor_pix[:n].mul_(sensor_width).add_(dev.prev_idx[:n])
+            dev.pol_signed[:n].copy_(pol).mul_(2).sub_(1)
+            pair_by_pixel(spix, lut.shape[1], dev.prev_idx[:n], dev.has_prev[:n])
+            for r in range(3):
+                torch.index_select(lut[r], 0, spix, out=dev.bearings[r, :n])
+            torch.arange(n, out=dev.batch_ids[:n]).div_(win.batch_size, rounding_mode="floor")
+            if n_pad > n:
+                for a in (dev.pol_signed, dev.prev_idx, dev.has_prev, dev.batch_ids,
+                          dev.sensor_pix, dev.bearings):
+                    a[..., n:] = 0
+                dev.bearings[2, n:] = 1
+        return dev
+
+
+# Events paired a sort at a time by :func:`pair_by_pixel`, so that the
+# sort's scratch (keys, int64 indices, the radix sort's buffers: ~40 bytes
+# an event) does not grow with the window. On an H100 the benchmark's
+# reserved peak reads the same at 2^16 and 2^18 and 57 MB more at 2^20.
+PAIR_CHUNK = 1 << 18
+
+
+def pair_by_pixel(spix, num_pix: int, prev_idx, has_prev):
+    """Pair events in arrival order at their flat sensor pixels ``spix``
+    (int32, (N,), any device; pixels below ``num_pix``): write into
+    ``prev_idx`` (int32) the index of the previous event at the same pixel,
+    clipped to >= 0, and into ``has_prev`` (bool) whether there is one; the
+    device counterpart of ``pairing.compute_prev_index``. Chunk by chunk of
+    :data:`PAIR_CHUNK` events in arrival order: a stable sort of the chunk's
+    pixel keys keeps arrival order within a pixel, so an event's predecessor
+    is its neighbour in sorted order when their keys are equal, and for the
+    first of its pixel in the chunk the last event there of the chunks
+    before (``last``, -1 if none)."""
+    last = torch.full((num_pix,), -1, dtype=torch.int32, device=spix.device)
+    for a in range(0, spix.numel(), PAIR_CHUNK):
+        keys, order = torch.sort(spix[a:a + PAIR_CHUNK], stable=True)
+        order += a
+        prev = last.index_select(0, keys)
+        prev[1:] = torch.where(keys[1:] == keys[:-1], order[:-1].to(torch.int32), prev[1:])
+        has_prev.scatter_(0, order, prev >= 0)
+        prev_idx.scatter_(0, order, prev.clamp_(min=0))
+        last.scatter_reduce_(0, keys.long(), order.to(torch.int32), "amax")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,13 +3,17 @@
 
 Consecutive-event pairing at each sensor pixel depends only on (x, y,
 arrival order), so ``prev_idx`` is computed once per window; every LM
-iteration then gathers through it on the device
-(``model.DeviceWindow.from_window``).
+iteration then gathers through it on the device. The device window
+(``model.DeviceWindow.from_window``) pairs the events itself, on the
+device, from the raw columns: :attr:`EventWindow.prev_idx` is computed here
+only when something reads it, and :func:`compute_prev_index` is the numpy
+counterpart the device pairing is held against.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -22,14 +26,20 @@ class EventWindow:
     x: np.ndarray  # (N,) int32 sensor column
     y: np.ndarray  # (N,) int32 sensor row
     pol: np.ndarray  # (N,) int8 polarity in {0, 1}
-    prev_idx: np.ndarray  # (N,) int32 index of previous event at same pixel, -1 if none
     batch_s: np.ndarray  # (NB,) int32 spline segment per batch
     batch_u: np.ndarray  # (NB,) f64 normalized offset per batch
     batch_size: int
+    sensor_width: int
 
     @property
     def num_events(self) -> int:
         return len(self.t)
+
+    @functools.cached_property
+    def prev_idx(self) -> np.ndarray:
+        """(N,) int32 index of the previous event at the same pixel, -1 if
+        none (:func:`compute_prev_index`, on first read)."""
+        return compute_prev_index(self.x, self.y, self.sensor_width)
 
     def batch_ids(self) -> np.ndarray:
         return (np.arange(self.num_events) // self.batch_size).astype(np.int32)
@@ -55,7 +65,8 @@ def compute_prev_index(x: np.ndarray, y: np.ndarray, sensor_width: int) -> np.nd
 
 def build_window(t, x, y, pol, sensor_width: int, traj_locate,
                  batch_size: int = 100) -> EventWindow:
-    """Assemble the static per-window structures.
+    """Assemble the static per-window structures (the pairing itself is
+    left to :attr:`EventWindow.prev_idx` or to the device window).
 
     Truncates the event tail to a multiple of ``batch_size``, as the
     reference's integer-division batch count does. ``traj_locate`` maps
@@ -73,10 +84,10 @@ def build_window(t, x, y, pol, sensor_width: int, traj_locate,
         x=np.asarray(x, np.int32),
         y=np.asarray(y, np.int32),
         pol=np.asarray(pol, np.int8),
-        prev_idx=compute_prev_index(np.asarray(x), np.asarray(y), sensor_width),
         batch_s=np.asarray(s, np.int32).reshape(nb),
         batch_u=np.asarray(u, np.float64).reshape(nb),
         batch_size=batch_size,
+        sensor_width=sensor_width,
     )
 
 

@@ -256,7 +256,7 @@ class _PreparedWindow:
     """Host-side window preparation product (see ``_prepare_window``)."""
 
     new_cps: np.ndarray  # fitted control poses for this window (pre-alignment)
-    win: pairing.EventWindow  # paired event window (pairing indices, batches)
+    win: pairing.EventWindow  # the window's events and batches (paired on the device)
     seg_num_knots: int  # predicted knot count of the window segment
     pushed: int  # knots this window's pushback would add
 
@@ -512,8 +512,9 @@ class EmbaPipeline:
         """All host-side work for one window that does NOT depend on any
         earlier window's solution: event-subset extraction (reference
         ``getEventSubset``, emba.cpp:473-510), front-end pose-subset spline
-        fitting (emba.cpp:412-417), and the event pairing/batching
-        (``pairing.build_window``). Numpy only: it runs on the worker thread
+        fitting (emba.cpp:412-417), and the event batching
+        (``pairing.build_window``; the events are paired on the device, in
+        the upload). Numpy only: it runs on the worker thread
         while the previous window solves, and must make no CUDA call (a
         CUDA call from another thread breaks a CUDA-graph capture). Its spans
         (``window.prepare`` and its stages) are kept in the run's record
@@ -554,7 +555,7 @@ class EmbaPipeline:
                     tq, seg_t_beg, cfg.dt_knots, seg_num_knots, cfg.spline_order
                 )
 
-            with obs.span("prepare.pairing"):
+            with obs.span("prepare.batches"):
                 win = pairing.build_window(
                     ev[0], ev[1], ev[2], ev[3], self.camera.width, loc,
                     cfg.event_batch_size,
@@ -642,7 +643,7 @@ class EmbaPipeline:
                 pose_latest = (tq, np.asarray(self.traj.evaluate(tq))[0])
 
         # Window pipelining: the host-side preparation of window k+1 (event
-        # subset, pose-subset spline fit, event pairing — none of which read
+        # subset, pose-subset spline fit, event batches — none of which read
         # window k's solution) runs on a worker thread overlapped with
         # window k's solve. Single worker => preparations stay ordered. It
         # runs in a copy of this context, so its spans join the run's record.
@@ -692,7 +693,8 @@ class EmbaPipeline:
                         nt_win_end, self.traj.num_knots,
                     )
 
-                # The window's upload, on this thread.
+                # The window's upload and its pairing on the device, on this
+                # thread.
                 win = prep.win
                 with obs.span("window.upload"):
                     # a streamed window is padded to a chunk multiple: its

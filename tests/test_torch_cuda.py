@@ -578,3 +578,40 @@ def test_cuda_streamed_window_follows_host_loop(cuda_device, light):
     for x, y in zip(a[:2], b[:2]):
         assert float((x - y).abs().max()) <= TM.MAP_ONLY_REPEAT_REL_TOL * float(
             y.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pad", [(torch.float32, 1), (torch.float64, 1 << 19)])
+def test_cuda_device_window_equals_host_build(cuda_device, dtype, pad):
+    """``DeviceWindow.from_window`` paired on the card at the bicycle cell's
+    size (3.5M events, 240x180) against the host build of the same fields
+    (``compute_prev_index``, the LUT gathered in f64 on the host, then
+    cast): every field equal in dtype, shape and bits, a padded window
+    too; the upload copies at most 9 bytes an event besides the batch
+    arrays and the LUT."""
+    import _host_window as HW
+
+    rng = np.random.default_rng(15)
+    w, h, n = 240, 180, 3_494_000
+    sensor = synth.default_sensor(w, h, f=200.0)
+    lut = sensor.bearing_lut()
+    x = rng.integers(0, w, n).astype(np.int32)
+    y = rng.integers(0, h, n).astype(np.int32)
+    t = np.sort(rng.uniform(0.0, 4.8, n))
+    pol = rng.integers(0, 2, n).astype(np.int8)
+
+    def locate(tq):
+        return np.floor(tq / 0.05).astype(np.int32), tq / 0.05 - np.floor(tq / 0.05)
+
+    win = build_window(t, x, y, pol, w, locate, 100)
+    rec = obs.Record()
+    with obs.recording(rec):
+        dev = TM.DeviceWindow.from_window(win, lut, w, dtype, cuda_device,
+                                          pad_multiple=pad)
+    rec.finish()
+    assert "prev_idx" not in vars(win)
+    assert dev.bearings.device.type == "cuda"
+    HW.assert_same_window(dev, HW.host_window(win, lut, w, dtype, pad))
+    nb, item = len(win.batch_s), dtype.itemsize
+    assert rec.counters["window.upload_bytes"] <= (9 * win.num_events + (4 + item) * nb
+                                                   + lut.size * item)

@@ -500,8 +500,8 @@ def test_fused_event_cap_fallback(dataset, tmp_path):
 CLOCK_NS = 100_000
 PIPELINE_SPANS = ("pipeline.init", "init.sort_cut", "init.map_filter", "init.bearing_lut",
                   "pipeline.run", "window.prep_wait", "window.prepare", "prepare.cut",
-                  "prepare.pose_fit", "prepare.pairing", "window.upload", "window.solve",
-                  "window.result")
+                  "prepare.pose_fit", "prepare.batches", "window.upload", "upload.copy",
+                  "upload.pair", "window.solve", "window.result")
 
 
 def assert_counters_match(rec, res):
@@ -514,7 +514,8 @@ def assert_counters_match(rec, res):
 def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
     """One window, fused: the pipeline's run record (obs) holds every span of
     the constructor, the run and the window, each stage after the one it
-    waits for, the preparation on the worker thread; its counters equal the
+    waits for, the preparation on the worker thread, the upload's copy and
+    device pairing inside it on the run's thread; its counters equal the
     LMStats; pipeline.init and pipeline.run cover the job."""
     from emba_tpu_torch import obs
 
@@ -524,15 +525,18 @@ def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
     assert rec is pipe.record and rec.end_ns is not None
     assert [s.name for s in rec.spans if s.name in PIPELINE_SPANS] == [
         "init.sort_cut", "init.map_filter", "init.bearing_lut", "pipeline.init",
-        "prepare.cut", "prepare.pose_fit", "prepare.pairing", "window.prepare",
-        "window.prep_wait", "window.upload", "window.solve", "window.result",
-        "pipeline.run"]
+        "prepare.cut", "prepare.pose_fit", "prepare.batches", "window.prepare",
+        "window.prep_wait", "upload.copy", "upload.pair", "window.upload", "window.solve",
+        "window.result", "pipeline.run"]
     s = {sp.name: sp for sp in rec.spans}
     init, run, prep = s["pipeline.init"], s["pipeline.run"], s["window.prepare"]
     for name in ("init.sort_cut", "init.map_filter", "init.bearing_lut"):
         assert s[name].parent == init.id
-    for name in ("prepare.cut", "prepare.pose_fit", "prepare.pairing"):
+    for name in ("prepare.cut", "prepare.pose_fit", "prepare.batches"):
         assert s[name].parent == prep.id and s[name].thread == prep.thread
+    for name in ("upload.copy", "upload.pair"):
+        assert s[name].parent == s["window.upload"].id and s[name].thread == run.thread
+    assert s["upload.copy"].end_ns <= s["upload.pair"].start_ns + CLOCK_NS
     for name in ("window.prepare", "window.prep_wait", "window.upload", "window.solve",
                  "window.result"):
         assert s[name].parent == run.id
@@ -545,7 +549,7 @@ def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
     assert init.end_ns <= run.start_ns + CLOCK_NS <= prep.start_ns + 2 * CLOCK_NS
     assert prep.end_ns <= s["window.prep_wait"].end_ns + CLOCK_NS
     for a, b in (("prepare.cut", "prepare.pose_fit"), ("prepare.pose_fit",
-                                                      "prepare.pairing")):
+                                                      "prepare.batches")):
         assert s[a].end_ns <= s[b].start_ns + CLOCK_NS
     assert rec.start_ns <= init.start_ns and run.end_ns <= rec.end_ns + CLOCK_NS
     assert_counters_match(rec, res)
@@ -553,6 +557,30 @@ def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
     tot = rec.totals()
     assert 0 <= tot["pipeline.run"]["self_s"] < tot["pipeline.run"]["total_s"]
     assert tot["window.prepare"]["total_s"] > 0 and tot["window.prep_wait"]["count"] == 1
+
+
+def test_pipeline_pairs_on_the_device_only(dataset, monkeypatch):
+    """A one-window job never pairs on the host: with
+    ``pairing.compute_prev_index`` raising, the job runs and gives the same
+    bits as the job that may call it, and its upload hands over the raw
+    columns (9 bytes an event), the batch arrays and the LUT."""
+    from emba_tpu_torch import pairing
+
+    want = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True)).run()
+
+    def host_pairing(*a, **k):
+        raise AssertionError("the pipeline paired on the host")
+
+    monkeypatch.setattr(pairing, "compute_prev_index", host_pairing)
+    pipe = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True))
+    got = pipe.run()
+    assert np.array_equal(got.trajectory.knots, want.trajectory.knots)
+    assert np.array_equal(got.gx, want.gx) and np.array_equal(got.gy, want.gy)
+    c = pipe.record.counters
+    item = 8 if pipe.dtype == torch.float64 else 4
+    nb = c["window.events"] // pipe.cfg.event_batch_size
+    assert c["window.upload_bytes"] == (9 * c["window.events"] + (4 + item) * nb
+                                        + pipe.bearing_lut.size * item)
 
 
 def test_recording_run_writes_prep_times_from_its_spans(dataset, tmp_path):
