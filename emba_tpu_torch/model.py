@@ -402,6 +402,16 @@ class NormalEq:
     dropped: torch.Tensor  # () int32 measurements past the cap (0 uncompacted)
 
 
+def row_pad(cfg: ModelConfig) -> int:
+    """R_pad, the rows of the map-domain row space the solve runs over: the
+    pixels rounded up to the kernel's ``ROW_ALIGN``, or with
+    ``compact_cap`` the cap (at most the pixels) rounded up to
+    ``COMPACT_ALIGN``."""
+    if cfg.compact_cap is None:
+        return a12_accum.round_up(cfg.num_pix, a12_accum.ROW_ALIGN)
+    return a12_accum.round_up(min(cfg.compact_cap, cfg.num_pix), COMPACT_ALIGN)
+
+
 def _row_space(num_ev_map, cfg: ModelConfig):
     """Active-pixel mask + the map-domain row space: the full pixel domain,
     or with ``compact_cap`` the active pixels in pixel order, one slot each,
@@ -412,13 +422,12 @@ def _row_space(num_ev_map, cfg: ModelConfig):
     hw = cfg.num_pix
     device = num_ev_map.device
     active = num_ev_map >= cfg.thres_valid_pixel
+    r_pad = row_pad(cfg)
     if cfg.compact_cap is None:
-        r_pad = a12_accum.round_up(hw, a12_accum.ROW_ALIGN)
         pix2row = torch.arange(hw, dtype=torch.int32, device=device)
         row_active = torch.nn.functional.pad(active, (0, r_pad - hw))
         return active, r_pad, pix2row, row_active
     r_dom = min(cfg.compact_cap, hw)
-    r_pad = a12_accum.round_up(r_dom, COMPACT_ALIGN)
     compact_id = torch.cumsum(active.to(torch.int32), 0, dtype=torch.int32) - 1
     # active pixels -> their slot, slots past r_pad and inactive pixels ->
     # r_pad (dropped everywhere)

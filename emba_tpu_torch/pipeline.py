@@ -16,7 +16,9 @@ orchestrator ``src/emba/emba.cpp``):
 * the window's variants: a coarse-to-fine pose pre-solve at half the
   panorama's resolution, and multi-start (four variants, the one of lowest
   data cost kept); the automatic active-pixel compaction cap of large
-  panoramas, retuned after each window from its active-pixel count;
+  panoramas (sized from the active pixels counted at the first window's
+  start where the event bound would overshoot ``ROWS_LARGE``), retuned
+  after each window from its active-pixel count;
 * data recording (params.txt, iterations.txt, per-iteration map dumps,
   refined TUM trajectory, maps, runtime.json) and window-boundary and
   mid-window checkpoints with resume;
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -161,12 +164,18 @@ ROWS_SMALL = 1 << 20
 # memory, not of the events. Fitted to the two windows near 25-30 GB above
 # (2^19 rows and 29.4M events, 2^21 rows and 4M), a window takes about
 # 13 KB a row (A12 and its Schur products, at ~95 knots) and 600 bytes an
-# event; an uncompacted 4K panorama (2^23 rows, which auto_compact_cap
-# leaves uncompacted from ~6.3M events on) would need over 100 GB for its
-# A12 alone, however few its events. Streaming does not shrink it: every
-# chunk adds into the same A12. So a row space above this raises, and the
-# per-window retune stays under it; a full 4K grid is solved by the
-# map-only step instead (``super_res_height``), which holds no A12.
+# event; an uncompacted 4K panorama (2^23 rows) would need over 100 GB for
+# its A12 alone, however few its events. Streaming does not shrink it:
+# every chunk adds into the same A12. Where the automatic cap would lie
+# above this (auto_compact_cap bounds the active pixels by events /
+# thres_valid_pixel, which leaves a 4K panorama uncompacted from ~6.3M
+# events on, and overshoots the pixels a window touches by one to two
+# orders of magnitude), the pipeline sizes the cap from the active pixels
+# it counts on the device at the first window's start state instead
+# (plan_model_config's ``active_px``), within this limit; the per-window
+# retune stays under it too. Only a count above it, or a cap set above it,
+# raises; a full 4K grid is solved by the map-only step instead
+# (``super_res_height``), which holds no A12.
 ROWS_LARGE = 1 << 21
 
 
@@ -181,6 +190,8 @@ def plan_model_config(
     n_dev: int,
     classic_cap_small: int = CLASSIC_CAP_SMALL_ROWS,
     classic_cap_large: int = CLASSIC_CAP_LARGE_ROWS,
+    rows_large: int = ROWS_LARGE,
+    active_px: int | None = None,
 ):
     """The reference's pre-run decisions (``emba_tpu/pipeline.py:100-157``):
     first the compaction cap, which the pipeline picks by itself for a
@@ -188,23 +199,45 @@ def plan_model_config(
     classic-window cap of the row space after compaction: a window above
     it streams in chunks of :data:`AUTO_STREAM_CHUNK` events unless
     ``cfg.stream_chunk`` was set (0 keeps it classic). The FULL tier is the
-    default; ``cfg.stream_light`` chooses the tier when it is set. A row
-    space above :data:`ROWS_LARGE` raises: streaming does not shrink A12.
+    default; ``cfg.stream_light`` chooses the tier when it is set.
+
+    Where the automatic row space (the event bound's cap, or the whole
+    grid where the bound gives none) lies above ``rows_large``, the cap is
+    deferred: without ``active_px`` the plan returns ``compact_cap`` None
+    with ``auto_cap`` True, streamed as a window of ``rows_large`` rows
+    would be (the most a sized cap can give), and the pipeline counts the
+    active pixels at the first window's start state. With ``active_px``
+    (that count) the cap is :func:`retune_compact_cap` of it, clamped at
+    ``rows_large``, and every later decision is the one a cap set at that
+    value takes; a count above ``rows_large`` raises, naming it. A cap set
+    above ``rows_large`` raises too: streaming does not shrink A12.
 
     The largest-window count is exact: events are time-sorted, so each
     window's count is two searchsorteds, and only window starts whose
     window runs (the loop requires t_win_end < t_ba_end + 1e-3) enter it.
 
     Returns ``(mcfg, auto_cap)``: ``auto_cap`` is True when the cap was
-    chosen here, and the run then retunes it after each window."""
+    chosen here (or deferred), and the run then retunes it after each
+    window."""
+    hw = mcfg.pano_width * mcfg.pano_height
     auto_cap = mcfg.compact_cap is None
     if auto_cap:
-        cap = auto_compact_cap(
-            mcfg.pano_width * mcfg.pano_height, len(t), mcfg.thres_valid_pixel
-        )
+        cap = auto_compact_cap(hw, len(t), mcfg.thres_valid_pixel)
         if cap is not None:
             mcfg = dataclasses.replace(mcfg, compact_cap=cap)
-    auto_cap = auto_cap and mcfg.compact_cap is not None
+    deferred = auto_cap and (mcfg.compact_cap or hw) > rows_large
+    if deferred and active_px is not None:
+        if active_px > rows_large:
+            raise NotImplementedError(
+                f"the first window's start state has {active_px} active pixels, above "
+                f"pipeline.ROWS_LARGE = {rows_large} rows: its A12 alone would not fit "
+                f"the card's memory. Solve the full grid with the map-only step "
+                f"(super_res_height, cli --super-res-height)")
+        mcfg = dataclasses.replace(
+            mcfg, compact_cap=min(retune_compact_cap(active_px, hw), rows_large))
+    elif deferred:
+        mcfg = dataclasses.replace(mcfg, compact_cap=None)
+    auto_cap = auto_cap and (mcfg.compact_cap is not None or deferred)
 
     edges_beg = np.arange(t_ba_beg, t_ba_end, win_stride)
     edges_beg = edges_beg[edges_beg + win_size < t_ba_end + 1e-3]
@@ -215,14 +248,15 @@ def plan_model_config(
         )
     ) if len(edges_beg) else len(t)
     per_dev = max_win_events / max(1, n_dev)
-    rows = mcfg.compact_cap or (mcfg.pano_width * mcfg.pano_height)
-    if rows > ROWS_LARGE:
+    rows = mcfg.compact_cap or (rows_large if deferred else hw)
+    if rows > rows_large:
         raise NotImplementedError(
-            f"a row space of {rows} rows is above pipeline.ROWS_LARGE = {ROWS_LARGE}: "
+            f"a row space of {rows} rows is above pipeline.ROWS_LARGE = {rows_large}: "
             f"its A12 alone would not fit the card's memory, and streamed forming "
             f"adds every chunk into the same A12, so it does not shrink it. Set a "
-            f"compact_cap of at most {ROWS_LARGE}, or solve the full grid with the "
-            f"map-only step (super_res_height, cli --super-res-height)")
+            f"compact_cap of at most {rows_large}, leave it unset (the pipeline then "
+            f"sizes it from the active pixels it counts), or solve the full grid with "
+            f"the map-only step (super_res_height, cli --super-res-height)")
     classic_cap = classic_cap_small if rows <= ROWS_SMALL else classic_cap_large
     if cfg.stream_chunk is None and per_dev > classic_cap:
         mcfg = dataclasses.replace(mcfg, stream_chunk=AUTO_STREAM_CHUNK)
@@ -612,10 +646,10 @@ class EmbaPipeline:
     def _run(self, resume_from):
         cfg = self.cfg
         n_dev = self.comm.world if self.comm is not None else 1
-        mcfg, auto_cap = plan_model_config(
-            cfg.model_config(), cfg, self.t, self.t_ba_beg, self.t_ba_end,
-            self.win_size, self.win_stride, n_dev,
-        )
+        plan = functools.partial(
+            plan_model_config, cfg.model_config(), cfg, self.t, self.t_ba_beg,
+            self.t_ba_end, self.win_size, self.win_stride, n_dev)
+        mcfg, auto_cap = plan()
         lm = cfg.lm_config()
 
         t_win_beg = self.t_ba_beg
@@ -693,18 +727,16 @@ class EmbaPipeline:
                         nt_win_end, self.traj.num_knots,
                     )
 
-                # The window's upload and its pairing on the device, on this
-                # thread.
                 win = prep.win
-                with obs.span("window.upload"):
-                    # a streamed window is padded to a chunk multiple: its
-                    # last chunk is full, and its chunk count follows from
-                    # its shape (a sharded one to a multiple of the ranks,
-                    # as the reference's)
-                    dev = model.DeviceWindow.from_window(
-                        win, self.bearing_lut, self.camera.width, self.dtype, self.device,
-                        pad_multiple=(mcfg.stream_chunk or 1) if self.comm is None else 1)
-                    dev = self.placement.shard(dev)
+                dev = self._upload(win, mcfg)
+                if auto_cap and mcfg.compact_cap is None:
+                    # a deferred cap, sized before the first window's solve
+                    sized = self._plan_rows(plan, mcfg, seg.knots, dev)
+                    if self._pad(sized) != self._pad(mcfg):
+                        del dev  # freed before the window is uploaded again
+                        dev = self._upload(win, sized)
+                    mcfg = sized
+                obs.count("plan.rows", model.row_pad(mcfg))
                 win_id = count_window
                 with obs.span("window.solve"):
                     if cfg.multi_start and resume_lm is None:
@@ -731,8 +763,15 @@ class EmbaPipeline:
                     if obs.nan_checks_enabled():
                         obs.check_finite(f"window {win_id}", knots=knots, gx=gx_j,
                                          gy=gy_j, cost=final_cost)
+                    cap = mcfg.compact_cap
                     if auto_cap:
                         mcfg = self._retune(stats, knots, gx_j, gy_j, dev, mcfg)
+                    if cap is not None:
+                        # active pixels past the cap: at each forming pass,
+                        # and at the refined state where the retune counted
+                        obs.count("plan.overflow_px", max(
+                            [stats.overflow_active_pixels]
+                            + [a - cap for a in stats.active_px_per_form]))
                     self.gx, self.gy = _host(gx_j), _host(gy_j)
                     seg = dataclasses.replace(seg, knots=_host(knots))
                     self.traj.replace_with(seg, seg.num_knots, 0, idx_cp_beg)
@@ -847,6 +886,39 @@ class EmbaPipeline:
     def _log(self, line: str):
         if self._iter_log is not None:
             self._iter_log.write(line + "\n")
+
+    def _pad(self, mcfg) -> int:
+        """The multiple a window is padded to: a streamed window's chunk, so
+        that its last chunk is full and its chunk count follows from its
+        shape (a sharded one is padded to a multiple of the ranks, as the
+        reference's, by the placement)."""
+        return (mcfg.stream_chunk or 1) if self.comm is None else 1
+
+    def _upload(self, win, mcfg):
+        """The window's upload and its pairing on the device, on this
+        thread, and this rank's shard of it."""
+        with obs.span("window.upload"):
+            dev = model.DeviceWindow.from_window(
+                win, self.bearing_lut, self.camera.width, self.dtype, self.device,
+                pad_multiple=self._pad(mcfg))
+            return self.placement.shard(dev)
+
+    def _plan_rows(self, plan, mcfg, seg_knots, dev):
+        """The plan with a deferred compaction cap sized (``plan``: a
+        :func:`plan_model_config` with the run's arguments bound): the
+        active pixels at the first window's start state (its fitted knots,
+        the filtered initial maps) counted on the device, one host read
+        (:func:`count_active_pixels`, streamed when the window streams),
+        and the cap :func:`retune_compact_cap` gives them within
+        :data:`ROWS_LARGE`, which holds them all, so no pixel overflows at
+        the start; it raises when they exceed it. The window then runs as
+        under that cap set in its configuration."""
+        with obs.span("window.plan_rows"):
+            knots, gx, gy = convert.state_from_numpy(seg_knots, self.gx, self.gy,
+                                                     self.dtype, self.device)
+            active = count_active_pixels(knots, gx, gy, dev, mcfg, self.placement)
+            obs.count("plan.active_px", active)
+            return plan(active_px=active)[0]
 
     def _retune(self, stats, knots, gx, gy, dev, mcfg):
         """After a window under the automatic compaction cap: count its

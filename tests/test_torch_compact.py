@@ -227,3 +227,43 @@ def test_compact_cap_overflow_symmetric(dense, cap):
 def test_compact_cap_must_be_positive():
     with pytest.raises(ValueError, match="compact_cap"):
         TM.ModelConfig(compact_cap=0)
+
+
+def test_deferred_streamed_window_matches_the_float64_reference(tmp_path, monkeypatch):
+    """A tiny window whose panorama (128x64) is above the row ceiling (here
+    4096 rows) defers its cap, streams (chunks of 4096 events) and is
+    solved by the pipeline in f64 on the CPU: against the benchmark's plain
+    float64 reference (``benchmark/reference/ba.py``, through
+    ``benchmark.check.numbers``) every number is within the ``span`` mix's
+    limits, and the cap came from the counted pixels with none past it."""
+    from benchmark import check, registry, run
+    from benchmark.reference import ba
+    from benchmark.tests import tiny
+    from emba_tpu_torch import camera, obs, pipeline
+    from emba_tpu_torch import config as ecfg
+
+    plan = pipeline.plan_model_config
+    monkeypatch.setattr(pipeline, "plan_model_config",
+                        lambda *a, **kw: plan(*a, **kw, rows_large=4096))
+    reg = registry.Registry(tiny.make_root(tmp_path))
+    conf, traffic = reg.config("tiny"), reg.traffic("span")
+    st = run.settings(conf, traffic)
+
+    def make_cfg():
+        cfg = run.program_config(ecfg, conf, traffic, st)
+        cfg.stream_chunk = 4096
+        return cfg
+
+    inp = run.Inputs(conf, traffic, torch.device("cpu"), camera)
+    job = run.run_job(pipeline, make_cfg, inp, 0, "cpu", False)
+    cnt = obs.runs()[-1].counters
+    assert job["events"] > 2 * 4096
+    assert 0 < cnt["plan.active_px"] <= cnt["plan.rows"] == 4096
+    assert cnt["plan.overflow_px"] == 0
+    win = ba.prepare_window(st, inp.events, job["dim_pose"] // 3, "cpu")
+    nums = check.numbers(st, win, dict(pose_times=inp.pose_times,
+                                       pose_rotations=job["pose_R"], init_gx=inp.gx,
+                                       init_gy=inp.gy),
+                         dict(knots=job["knots"], gx=job["gx"], gy=job["gy"],
+                              iterations=job["its"]), "cpu")
+    assert check.within(nums, traffic["limits"]), nums

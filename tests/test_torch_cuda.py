@@ -581,6 +581,75 @@ def test_cuda_streamed_window_follows_host_loop(cuda_device, light):
 
 
 @pytest.mark.cuda
+def test_cuda_deferred_cap_streamed_window_follows_host_loop(cuda_device):
+    """A window whose event bound overshoots ``pipeline.ROWS_LARGE`` (a
+    128x96 sensor onto a 4096x2048 map, ~2.4M events at
+    ``thres_valid_pixel`` 1: the bound leaves the 2^23-pixel map
+    uncompacted) defers its compaction cap and sizes it from the active
+    pixels counted at its start; streamed in chunks of 2^19 events, fused
+    on the card and through the host loop, against the same pipeline in
+    f64 on the CPU: the same cap on all three, no pixel past it; the same
+    steps and accepts, final costs within 1e-5 of each other on the card
+    and within 1e-3 of the f64 one (as the streamed window above); A12
+    launches = forming passes x chunks."""
+    from emba_tpu_torch import config, pipeline
+
+    sensor = synth.default_sensor(128, 96, f=106.0)
+    rng = np.random.default_rng(3)
+    B = synth.smooth_random_map(2048, 4096, rng, smooth=31, amp=3.0)
+    scene = synth.generate(rng, sensor, pano_width=4096, pano_height=2048, c_th=0.05,
+                           t_end=1.0, dt_knots=0.05, num_steps=400, motion_amp=0.25,
+                           brightness=B)
+    steps = np.random.default_rng(7).normal(size=(scene.traj.num_knots, 3)) * 0.01
+    walk = np.cumsum(steps, axis=0)
+    walk -= walk[0]
+    traj0 = dataclasses.replace(scene.traj, knots=spline._np_exp(walk) @ scene.traj.knots)
+    pose_t = np.arange(0.0, 1.0, 1.0 / 200)
+    pose_R = traj0.evaluate(pose_t)
+    chunk = 1 << 19
+    kw = dict(start_time=0.05, stop_time=0.95, c_th=0.05, alpha=0.5, max_num_iter=6,
+              dt_knots=0.05, thres_valid_pixel=1, outlier_dp_norm=3.0, stream_chunk=chunk)
+    events = (scene.t, scene.x, scene.y, scene.pol)
+
+    def run(device, dtype, fused):
+        pipe = pipeline.EmbaPipeline(
+            config.BAConfig(**kw, dtype=dtype, fused_lm=fused), sensor, events, pose_t,
+            pose_R, init_gx=scene.gx, init_gy=scene.gy, device=device)
+        return pipe.run(), pipe.record.counters
+
+    assert pipeline.auto_compact_cap(4096 * 2048, len(scene.t), 1) is None
+    ref, ref_cnt = run("cpu", "float64", False)
+    host, host_cnt = run(cuda_device, "float32", False)
+    kernels.reset_launch_counts()
+    fused, fused_cnt = run(cuda_device, "float32", True)
+    torch.cuda.synchronize()
+    st = fused.window_stats[0]
+    chunks = -(-st.num_events // chunk)
+    assert chunks > 1
+    assert kernels.launch_counts()["a12_accum"] == st.count_form * chunks
+    assert fused_cnt["plan.active_px"] == host_cnt["plan.active_px"]
+    for res, cnt in ((ref, ref_cnt), (host, host_cnt), (fused, fused_cnt)):
+        cap = res.model_config.compact_cap
+        assert cap == fused.model_config.compact_cap <= pipeline.ROWS_LARGE
+        assert cap == pipeline.retune_compact_cap(cnt["plan.active_px"], 4096 * 2048)
+        assert res.model_config.stream_chunk == chunk
+        assert cnt["plan.rows"] == cap and cnt["plan.overflow_px"] == 0
+
+    def accepts(r):
+        return [it["cost_new"] < it["cost_min"] for it in r.window_stats[0].iterations]
+
+    def final(r):
+        its = r.window_stats[0].iterations
+        return min([it["cost_min"] for it in its] + [it["cost_new"] for it in its])
+
+    assert accepts(fused) == accepts(host) == accepts(ref)
+    assert abs(final(fused) - final(host)) <= 1e-5 * abs(final(host))
+    for r in (fused, host):
+        assert abs(final(r) - final(ref)) <= 1e-3 * abs(final(ref))
+    assert np.isfinite(fused.gx).all() and np.isfinite(fused.trajectory.knots).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,pad", [(torch.float32, 1), (torch.float64, 1 << 19)])
 def test_cuda_device_window_equals_host_build(cuda_device, dtype, pad):
     """``DeviceWindow.from_window`` paired on the card at the bicycle cell's

@@ -41,6 +41,7 @@ TWO = dict(start_time=0.0, stop_time=0.6, c_th=0.1, alpha=0.5, max_num_iter=4,
            dt_knots=0.05, dtype="float64", time_window_size=0.3,
            sliding_window_stride=0.3)
 CASES = {"one": ONE, "two": TWO}
+PLAN = TP.plan_model_config
 
 
 
@@ -686,14 +687,25 @@ def test_retune_compact_cap_matches_jax(cap, observed):
 def test_plan_model_config_row_ceiling(n_events, compact_cap, rows):
     """A 4096x2048 panorama plans a window in a row space up to
     pipeline.ROWS_LARGE (2^21, the automatic cap of 4M events, or a cap
-    set there); above it (a cap set at 2^22, or the 2^23 rows that 6.5M
-    events leave uncompacted) the plan raises, naming A12's memory, which
-    streaming does not shrink, and the map-only super-resolution path."""
+    set there). A cap set above it (2^22) raises, naming A12's memory,
+    which streaming does not shrink, and the map-only super-resolution
+    path. Where the automatic row space is above it (the 2^23 rows that
+    6.5M events leave uncompacted) the plan defers the cap, streamed as
+    2^21 rows would be, and sizes it from an active-pixel count: within
+    the ceiling, or raising on a count above it, naming the count."""
     mcfg = TC.BAConfig(pano_width=4096, pano_height=2048,
                        thres_valid_pixel=3).model_config()
     mcfg = dataclasses.replace(mcfg, compact_cap=compact_cap)
     args = (mcfg, TC.BAConfig(), np.linspace(0.0, 1.0, n_events), 0.0, 1.0, 0.8, 0.5, 1)
-    if rows is None:
+    if rows is None and compact_cap is None:
+        got, auto = TP.plan_model_config(*args)
+        assert got.compact_cap is None and auto and got.stream_chunk is None
+        for active, cap in ((700_000, 1 << 21), (300_000, 1 << 20), (1 << 21, 1 << 21)):
+            sized, auto = TP.plan_model_config(*args, active_px=active)
+            assert sized.compact_cap == cap and auto
+        with pytest.raises(NotImplementedError, match="has 2097153 active pixels"):
+            TP.plan_model_config(*args, active_px=(1 << 21) + 1)
+    elif rows is None:
         with pytest.raises(NotImplementedError, match="super_res_height"):
             TP.plan_model_config(*args)
         streamed = TC.BAConfig(stream_chunk=1 << 20)
@@ -701,6 +713,78 @@ def test_plan_model_config_row_ceiling(n_events, compact_cap, rows):
             TP.plan_model_config(args[0], streamed, *args[2:])
     else:
         assert TP.plan_model_config(*args)[0].compact_cap == rows
+
+
+def small_rows(monkeypatch, rows_large, **caps):
+    """``pipeline.plan_model_config`` with a row ceiling of ``rows_large``
+    (and the classic caps ``caps``), so that a tiny panorama defers its
+    cap (over the module's own function, however often it is patched)."""
+    def planned(*a, **kw):
+        return PLAN(*a, **kw, rows_large=rows_large, **caps)
+
+    monkeypatch.setattr(TP, "plan_model_config", planned)
+
+
+@pytest.mark.parametrize("case", ["classic", "streamed", "uploaded_again"])
+def test_deferred_cap_is_the_cap_set_at_its_count(dataset, monkeypatch, case):
+    """A panorama above the row ceiling (here 4096 or 6144 rows under the
+    8192 pixels of 128x64) defers its compaction cap: the pipeline counts
+    the active pixels at the window's start (``plan.active_px``, in the
+    span ``window.plan_rows``), sizes the cap from them, and the window
+    runs bit for bit as with that cap set in its configuration, classic or
+    streamed, the same chunk and tier; ``plan.rows`` is its R_pad and
+    ``plan.overflow_px`` 0. Where the ceiling is above ROWS_SMALL but the
+    sized cap is not (``uploaded_again``), the window that streamed for the
+    count runs classic, as the set cap plans it, and is uploaded again."""
+    kw = dict(ONE, fused_lm=True)
+    rows_large, caps = 4096, {}
+    if case == "streamed":
+        kw["stream_chunk"] = 4096
+    if case == "uploaded_again":
+        rows_large, caps = 6144, dict(classic_cap_small=10**9, classic_cap_large=1000)
+        monkeypatch.setattr(TP, "ROWS_SMALL", 4096)
+        monkeypatch.setattr(TP, "AUTO_STREAM_CHUNK", 4096)
+    small_rows(monkeypatch, rows_large, **caps)
+    pipe = port_pipe(dataset, TC.BAConfig(**kw))
+    res = pipe.run()
+    cnt = pipe.record.counters
+    cap = res.model_config.compact_cap
+    assert cnt["plan.active_px"] == res.window_stats[0].active_px_per_form[0] > 0
+    assert cap == TP.retune_compact_cap(cnt["plan.active_px"], 128 * 64) == 4096
+    assert cnt["plan.rows"] == cap and cnt["plan.overflow_px"] == 0
+    (plan_rows,) = pipe.record.named("window.plan_rows")
+    assert plan_rows.thread == pipe.record.thread
+    assert len(pipe.record.named("window.upload")) == (2 if case == "uploaded_again" else 1)
+    assert res.model_config.stream_chunk == (4096 if case == "streamed" else None)
+    fixed = port_pipe(dataset, TC.BAConfig(**kw, compact_cap=cap))
+    want = fixed.run()
+    assert want.model_config == res.model_config
+    assert "plan.active_px" not in fixed.record.counters
+    assert fixed.record.counters["plan.rows"] == cap
+    assert not fixed.record.named("window.plan_rows")
+    assert res.window_stats[0].iterations == want.window_stats[0].iterations
+    for a, b in ((res.trajectory.knots, want.trajectory.knots), (res.gx, want.gx),
+                 (res.gy, want.gy)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_deferred_cap_raises_on_a_count_above_the_ceiling(dataset, monkeypatch):
+    """A start state whose active pixels exceed the row ceiling raises
+    before the solve, naming the count; under the ceiling the same window
+    runs, and a panorama that fits the ceiling counts nothing."""
+    small_rows(monkeypatch, 4096)
+    pipe = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True))
+    pipe.run()
+    active = pipe.record.counters["plan.active_px"]
+    small_rows(monkeypatch, active - 1)
+    with pytest.raises(NotImplementedError, match=f"has {active} active pixels"):
+        port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True)).run()
+    small_rows(monkeypatch, 128 * 64)
+    plain = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True))
+    plain.run()
+    assert "plan.active_px" not in plain.record.counters
+    assert "plan.overflow_px" not in plain.record.counters
+    assert plain.record.counters["plan.rows"] == 128 * 64
 
 
 @pytest.mark.parametrize("mode", ["fused", "host"])
