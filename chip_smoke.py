@@ -6,7 +6,7 @@
 Phases, each reporting on its own lines:
 
 1. device: torch / CUDA versions and the card (``nvidia-smi``);
-2. build: compiles both CUDA kernels from ``emba_tpu_torch/kernels/csrc``,
+2. build: compiles the CUDA kernels from ``emba_tpu_torch/kernels/csrc``,
    one ``nvcc`` each, in parallel;
 3. kernel check: the A12 accumulation kernel against its plain torch
    version on the same GPU tensors, at the main path's shapes and at edge
@@ -26,7 +26,12 @@ Phases, each reporting on its own lines:
    panorama with a 97-knot order-2 spline (the problem of ``bench.py``),
    ``LMConfig(max_num_iter=8, tol_fun=0)`` (9 trial steps); then the A12
    kernel on that window's own linearization at the start state against
-   its plain version, with the window's row and key occupancy;
+   its plain version, with the window's row and key occupancy; then the
+   active-row Schur kernels (``schur_rows``) on that window's own system
+   and row list, and on 64 of its listed rows, against f64 sums over the
+   same rows and beside two planted faults (a dropped stage of 8 rows,
+   TF32 products) that must fail the same limit; the loop's schur_rows
+   launches are gated at two a solve, the fused window's (8) likewise;
 8. main path, fused: the same window through ``solve_window_fused`` (CUDA
    graphs) with ``bench.py``'s settings (damping 1, ``tol_fun`` 0), twice:
    the first call captures the graphs, the second reuses them and must
@@ -117,9 +122,9 @@ Phases, each reporting on its own lines:
     (within 3e-5 on the pixels whose counts agree; two calls equal in
     bits); (d) ``cli run --num-devices 2 --dist-backend gloo`` on phase
     11's scene, fused and recording, on ranks that count their launches,
-    against phase 11's run 1 (final cost within 1e-3, rotation RMSE within
-    0.01 deg), then the two-rank run's mid-window checkpoint resumed on
-    one device; (e)
+    against the same run on one device, all held to 16 steps (the same
+    steps, final cost within 1e-3, rotation RMSE within 0.01 deg), then the
+    two-rank run's mid-window checkpoint resumed on one device; (e)
     ``dist.dryrun``'s variants on (b)'s ranks: finite, cost falling, the
     ranks agreeing.
 
@@ -174,6 +179,19 @@ PIPELINE_KNOTS_REL_TOL = 1e-5
 # a fraction of the f64 result's largest magnitude: an f32 FFT solve is
 # good to a few 1e-6 at 1024x512 (1.5e-6 in f32 on the CPU).
 RECON_REL_TOL = 1e-4
+# The active-row Schur kernels (schur_rows) on the main window's own system
+# against float64 sums over the same listed rows, as a fraction of the f64
+# result's largest magnitude (x2: of each row's |M| (|b2| + |a| . |x|)). The
+# kernel sums each split's rows in sequence in f32 (a few 1e-7 to 1e-6 of the
+# largest at the cells' shapes, probes.schur_probe). Each case also runs two
+# planted faults through the plain version in f32, which must read above it:
+# one stage of 8 listed rows dropped (8 of the window's ~40k rows move S by
+# ~1e-4 of its largest), and a TF32 product (operands rounded to 10 mantissa
+# bits, as the tensor cores take them: ~5e-4 a term, which averages down as
+# 1/sqrt(rows) in S, so S is also checked over 64 of the listed rows, and
+# x2's dots of 288 terms read it directly).
+SCHUR_REL_TOL = 1e-5
+SCHUR_SHORT_ROWS = 64
 # Published peaks of one NVIDIA H100 SXM at its 700 W limit (data sheet):
 # device memory rate and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -556,6 +574,7 @@ def phase_main(device):
     torch.cuda.synchronize()
     mallocs = cuda_mallocs() - mallocs
     launches = kernels.launch_counts()["a12_accum"]
+    schur_launches = kernels.launch_counts()["schur_rows"]
     peak = peaks()
 
     _require(knots.shape == knots0.shape and Gx.shape == Gx0.shape, "output shapes")
@@ -567,6 +586,8 @@ def phase_main(device):
     _require(cost_min < cost0, f"main: cost did not fall ({cost0} -> {cost_min})")
     _require(launches == st.count_form,
              f"main: {launches} kernel launches != {st.count_form} forming passes")
+    _require(schur_launches == 2 * st.count_solve,
+             f"main: {schur_launches} schur_rows launches != 2 x {st.count_solve} solves")
 
     tt = np.linspace(scene.t[0], scene.t[n - 1], 200)
     R_gt = np.asarray(scene.traj.evaluate(tt))
@@ -592,10 +613,12 @@ def phase_main(device):
           f"{warm.time_solve_s:.4f} objective {warm.time_objective_s:.4f} total "
           f"{warm.time_total_s:.4f}; cudaMalloc calls {cuda_mallocs() - mallocs}",
           flush=True)
-    print(f"main: a12_accumulate launches {launches} == count_form {st.count_form}",
+    print(f"main: a12_accumulate launches {launches} == count_form {st.count_form}; "
+          f"schur_rows launches {schur_launches} == 2 x count_solve {st.count_solve}",
           flush=True)
     return dict(dev=dev, cfg=cfg, start=(knots0, Gx0, Gy0), lm=lm, n=n,
-                host=(knots, Gx, Gy, st), win=w["win"], sensor=w["sensor"])
+                host=(knots, Gx, Gy, st), win=w["win"], sensor=w["sensor"],
+                schur_launches=schur_launches)
 
 
 def phase_window_kernel(ctx, name="real window", graphed=True, exact=True):
@@ -622,6 +645,143 @@ def phase_window_kernel(ctx, name="real window", graphed=True, exact=True):
           flush=True)
     return check_kernel_case(f"{name} N={n} K={knots} order={order}", args,
                              r_pad, knots, order, exact=exact, graphed=graphed)
+
+
+def _tf32(t):
+    """``t`` (f32) rounded to nearest at TF32's 10 mantissa bits."""
+    import torch
+
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _schur_f32(a12, rows, count, vecs, lo, hi, x, tf32):
+    """S_red, rhs_red and x2 on the listed rows in f32 over those rows
+    only, with the products' operands rounded to TF32 when ``tf32``: the
+    planted fault of a tensor-core product."""
+    import torch
+
+    rnd = _tf32 if tf32 else (lambda t: t)
+    n = int(count)
+    r = rows[:n].long()
+    dp = a12.shape[1] // 2
+    cols = torch.arange(dp, device=a12.device)
+    cm = ((cols >= lo) & (cols < hi)).float()
+    g = a12[r]
+    a, o = g[:, :dp] * cm, g[:, dp:] * cm
+    m00, m01, m11, bx, by = (v[r] for v in vecs)
+    ze = a * m00[:, None] + o * m01[:, None]
+    zo = a * m01[:, None] + o * m11[:, None]
+    S = rnd(a).T @ rnd(ze) + rnd(o).T @ rnd(zo)
+    rhs = (m00 * bx + m01 * by) @ a + (m01 * bx + m11 * by) @ o
+    vx, vy = bx - rnd(g[:, :dp]) @ rnd(x), by - rnd(g[:, dp:]) @ rnd(x)
+    return S, rhs, torch.stack([m00 * vx + m01 * vy, m01 * vx + m11 * vy])
+
+
+def phase_schur(ctx):
+    """The active-row Schur kernels on the main window's own system at its
+    start state (the first solve's inputs, lambda at its start): the window's
+    own row list, and 64 of its rows from the middle of the list, each
+    against float64 sums over the same rows (``probes.schur_probe``), with
+    two planted faults through f32 beside the kernel (one stage of 8 rows
+    dropped, TF32 products), which must read above SCHUR_REL_TOL; the plain
+    version on the same f32 inputs; x2 exactly zero on every other row; two
+    calls equal in bits. Times: the eager call, the plain version, a graph
+    replay, and the bound of that count (the upper triangle of S over the
+    live columns: 2 n c (c + 1) f32 operations). Returns the report entry."""
+    import torch
+
+    from emba_tpu_torch import lm
+    from emba_tpu_torch import model as M
+    from emba_tpu_torch.device import cuda_time_ms, graph_time_ms
+    from emba_tpu_torch.kernels import schur_rows as SR
+    from emba_tpu_torch.probes.schur_probe import listed_f64
+
+    knots, Gx, Gy = ctx["start"]
+    cfg = ctx["cfg"]
+    lin = M.linearize(knots, Gx, Gy, ctx["dev"], cfg)
+    neq = M.form_normal_eq(lin, Gx, Gy, cfg, knots.shape[0])
+    del lin
+    lam = lm.LAMBDA_INIT
+    x1, _ = M.solve_normal_eq(neq, lam, True)
+    dim, dp = neq.b1.shape[0], neq.A12.shape[1] // 2
+    lo = 3  # fix_first, as every window of the port is solved
+    m00, m01, m11, live = M._damped_a22_inv(neq, lam)
+    rows, count = SR.row_list(live)
+    a12 = neq.A12.contiguous()
+    vecs = (m00, m01, m11, neq.b2_x.contiguous(), neq.b2_y.contiguous())
+    x = torch.zeros(dp, device=a12.device)
+    x[lo:dim] = x1[lo:]
+    n = int(count)
+    _require(n > 2 * SCHUR_SHORT_ROWS, f"schur: {n} listed rows")
+    mid = torch.roll(rows, -(n // 2))  # the list from its middle on
+    short = torch.tensor(SCHUR_SHORT_ROWS, dtype=torch.int32, device=a12.device)
+    stage = rows[n // 2:n // 2 + 8].long()
+    dropped = tuple(v.clone() for v in vecs)
+    for v in dropped[:3]:
+        v[stage] = 0.0
+
+    def errs(S, rhs, x2, want):
+        Sd, rhsd, x2d, x2s = want
+        return dict(S=float((S.double() - Sd).abs().max() / Sd.abs().max()),
+                    rhs=float((rhs.double() - rhsd).abs().max() / rhsd.abs().max()),
+                    x2=float(((x2.double() - x2d).abs() / x2s.clamp(min=1e-30)).max()))
+
+    out = {}
+    for case, rl, c in (("window", rows, count), ("64 rows", mid, short)):
+        S, rhs = SR.schur_reduce(a12, rl, c, *vecs, lo, dim)
+        S2, rhs2 = SR.schur_reduce(a12, rl, c, *vecs, lo, dim)
+        x2 = SR.back_substitute(a12, rl, c, *vecs, x)
+        x2b = SR.back_substitute(a12, rl, c, *vecs, x)
+        Sp, rhsp = SR.schur_reduce_plain(a12, rl, c, *vecs, lo, dim)
+        x2p = SR.back_substitute_plain(a12, rl, c, *vecs, x)
+        torch.cuda.synchronize()
+        Sd, rhsd, x2d, x2s, r = listed_f64(neq, rl, c, vecs, lo, dim, x)
+        want = (Sd, rhsd, x2d, x2s)
+        others = torch.ones(a12.shape[0], dtype=torch.bool, device=a12.device)
+        others[r] = False
+        got = errs(S, rhs, x2[:, r], want)
+        plain = errs(Sp, rhsp, x2p[:, r], want)
+        tf32 = errs(*_schur_f32(a12, rl, c, vecs, lo, dim, x, True), want)
+        drop = errs(*_schur_f32(a12, rl, c, dropped, lo, dim, x, False), want)
+        print(f"schur {case} ({int(c)} of {a12.shape[0]} rows, dp_pad {dp}, columns "
+              f"[{lo}, {dim})) against f64: kernel {json.dumps(got)}; plain "
+              f"{json.dumps(plain)}; planted TF32 {json.dumps(tf32)}; planted stage "
+              f"dropped {json.dumps(drop)}", flush=True)
+        _require(torch.equal(S, S2) and torch.equal(rhs, rhs2) and torch.equal(x2, x2b),
+                 f"schur {case}: two calls differ")
+        _require(torch.equal(S, S.T), f"schur {case}: S not exactly symmetric")
+        _require(bool((x2[:, others] == 0).all()), f"schur {case}: x2 nonzero off the list")
+        for k in ("S", "rhs", "x2"):
+            _require(got[k] <= SCHUR_REL_TOL and plain[k] <= SCHUR_REL_TOL,
+                     f"schur {case}: {k} kernel {got[k]:.2e}, plain {plain[k]:.2e} > "
+                     f"{SCHUR_REL_TOL:.0e}")
+        _require(drop["S"] > SCHUR_REL_TOL,
+                 f"schur {case}: a dropped stage reads {drop['S']:.2e}, not above the limit")
+        if case != "window":
+            _require(tf32["S"] > SCHUR_REL_TOL,
+                     f"schur {case}: TF32 products read {tf32['S']:.2e} in S, not above "
+                     "the limit")
+        _require(tf32["x2"] > SCHUR_REL_TOL,
+                 f"schur {case}: TF32 products read {tf32['x2']:.2e} in x2, not above "
+                 "the limit")
+        out[case] = dict(kernel=got, plain=plain, tf32=tf32, dropped=drop)
+        del Sd, rhsd, x2d, x2s, r, others
+
+    c = dim - lo
+    ms = cuda_time_ms(lambda: SR.schur_reduce(a12, rows, count, *vecs, lo, dim))
+    graph_ms = graph_time_ms(lambda: SR.schur_reduce(a12, rows, count, *vecs, lo, dim))
+    plain_ms = cuda_time_ms(lambda: SR.schur_reduce_plain(a12, rows, count, *vecs, lo, dim))
+    back_ms = graph_time_ms(lambda: SR.back_substitute(a12, rows, count, *vecs, x))
+    bound_ms = _bound(8 * n * dp, 2.0 * n * c * (c + 1))
+    print(f"schur window: schur_reduce {ms:.3f} ms eager, graph {graph_ms:.3f}, plain "
+          f"{plain_ms:.3f}; bound {bound_ms[0]:.3f} ms ({bound_ms[1]}; operations 2 n c (c + 1), n "
+          f"{n}, c {c}), share of bound {bound_ms[0] / graph_ms:.3f} graph; "
+          f"back_substitute graph {back_ms:.3f} ms", flush=True)
+    return dict(max_rel_err=max(v for e in out.values() for k in ("kernel", "plain")
+                                for v in e[k].values()),
+                ms=ms, plain_ms=plain_ms, graph_ms=graph_ms, bound_ms=bound_ms[0],
+                bound_by=bound_ms[1], back_graph_ms=back_ms, listed_rows=n,
+                rows=a12.shape[0], errors=out)
 
 
 def _reset_peak_memory():
@@ -672,13 +832,15 @@ def phase_fused(ctx):
     """The main window through solve_window_fused twice: the first call
     builds and captures the graphs, the second reuses them. Each is held
     against the host loop on the card, and the two against each other bit
-    for bit. Returns the a12 kernel launches of the second call."""
+    for bit. Returns the a12 kernel launches of the second call, its outputs
+    and its schur_rows launches."""
     import torch
 
-    from emba_tpu_torch import lm
+    from emba_tpu_torch import kernels, lm
 
     first = _fused(ctx)
     (k, gx, gy, cost, it, conv, trace), st, launches, peak, wall = _fused(ctx)
+    schur_launches = kernels.launch_counts()["schur_rows"]  # counted from 0 in _fused
     _finite("fused", (k, gx, gy))
     _require(st.setup_s == 0.0 and first[1].setup_s > 0.0,
              "fused: the second call did not reuse the first call's graphs")
@@ -721,7 +883,12 @@ def phase_fused(ctx):
                  f"fused {name} call: {n_launch} kernel launches != {passes} forming passes")
     _require(st.replays["form"] == host.count_form,
              f"fused: {st.replays['form']} form replays != host loop {host.count_form}")
-    return launches, (k, gx, gy, cost, it, conv, trace)
+    print(f"fused: schur_rows launches {schur_launches} == 2 x {st.replays['solve']} "
+          "solve replays", flush=True)
+    _require(schur_launches == 2 * st.replays["solve"],
+             f"fused: {schur_launches} schur_rows launches != 2 x "
+             f"{st.replays['solve']} solve replays")
+    return launches, (k, gx, gy, cost, it, conv, trace), schur_launches
 
 
 def phase_resume(ctx):
@@ -962,7 +1129,7 @@ def phase_pipeline(device, d):
              f"run 5: recon rel {rel:.3e} > {RECON_REL_TOL:.0e}")
     launches = {"run1": s1["a12_launches"], "run2": s2["a12_launches"],
                 "run4": s4["a12_launches"]}
-    return launches, max(c[0] for c in cases), p, (r0, r1), fused
+    return launches, max(c[0] for c in cases), p, (r0, r1)
 
 
 # ---------------------------------------------------------------------------
@@ -1826,15 +1993,17 @@ SHARDED_F32_REL_TOL = 1e-4
 # the card, relative to the map's largest magnitude, on the pixels whose
 # inlier counts agree (13a measured 3.0e-5 for f32 against f64)
 SHARDED_MAP_REL_TOL = 3e-5
-# 14d: a two-rank run of phase 11's row against its run 1, both f32 to
-# convergence (23 steps). On an NVIDIA H100 80GB HBM3 at 700 W the sound
-# runs read 2.30e-4 (two ranks) and 4.19e-4 (their checkpoint resumed on
-# one device), and a fault planted in the sharded window reads 4.3e-3 (the
-# halo fold lost; the RMSE moved 0.0005 deg), 0.10 (A12 not summed over
-# the ranks) and 0.51 (a rank's events dropped): ``python -m
-# emba_tpu_torch.probes.sharded``. The limit lies between the largest sound
-# reading and the smallest faulty one. In f64 two ranks and one device end
-# on the same cost (tests/test_torch_dist_pipeline.py holds them to 1e-8).
+# 14d: a two-rank run of phase 11's row against one device, both f32 and
+# held to the same SHARDED_CLI_MAX_NUM_ITER + 1 steps. Run to convergence the
+# paths part: near step 23 the relative decrease sits at tol_fun's edge, and
+# any change of f32 summation order (the ranks' partial sums, the Schur
+# sums) moves the step at which tol_fun is met a second time, and with it a
+# final cost by up to 0.4% (PERF.md, PR 17). 16 steps end before that edge,
+# so every run takes the same steps and the costs compare step for step.
+# The limit lies between the largest sound reading and the smallest reading
+# of a fault planted in the sharded window (``python -m
+# emba_tpu_torch.probes.sharded --max-num-iter 15``), see PERF.md, PR 17.
+SHARDED_CLI_MAX_NUM_ITER = 15
 SHARDED_CLI_COST_REL_TOL = 1e-3
 SHARDED_RMSE_TOL_DEG = 0.01
 SHARDED_RANKS = 2
@@ -2021,22 +2190,25 @@ def _rmse(traj, p, d, name):
     return cli.main(["eval", "--traj", path, "--gt", p["traj_gt.txt"]])["rotation_rmse_deg"]
 
 
-def phase_sharded_cli(p, run1, rmse1, d):
+def phase_sharded_cli(p, d):
     """14d: ``cli run --num-devices 2 --dist-backend gloo`` on phase 11's
-    scene against phase 11's run 1 (``run1``, refined RMSE ``rmse1``), on
-    ranks that run the CLI's rank path and count their A12 launches
-    (``probes.sharded.cli_rank``; the CLI's own spawn of them is held by
-    the CPU tests): fused, then recording, whose first mid-window
-    checkpoint one device then resumes. Returns ({path: A12 launches},
-    {run: seconds})."""
+    scene against the same ``cli run`` on one device, every run held to
+    SHARDED_CLI_MAX_NUM_ITER + 1 steps, on ranks that run the CLI's rank
+    path and count their A12 launches (``probes.sharded.cli_rank``; the
+    CLI's own spawn of them is held by the CPU tests): fused, then
+    recording, whose first mid-window checkpoint one device then resumes.
+    Returns ({path: A12 launches}, {run: seconds})."""
     from emba_tpu_torch import cli, dist
     from emba_tpu_torch.probes import sharded
     from emba_tpu_torch.probes.suite_run import suite_argv
 
-    base = ["run"] + suite_argv(p)
+    base = ["run"] + suite_argv(p, max_num_iter=SHARDED_CLI_MAX_NUM_ITER)
     argv = base + ["--num-devices", str(SHARDED_RANKS), "--dist-backend", "gloo"]
     out, snap = os.path.join(d, "sharded_rec"), os.path.join(d, "sharded_mid.npz")
     secs, runs, ranks = {}, {}, {}
+    t0 = time.perf_counter()
+    runs["one"] = cli.main(base)
+    secs["one_s"] = time.perf_counter() - t0
     for name, extra, keep in (("fused", [], None), ("recording", ["--out", out], snap)):
         t0 = time.perf_counter()
         ranks[name] = dist.spawn(sharded.cli_rank, SHARDED_RANKS, "gloo",
@@ -2049,7 +2221,14 @@ def phase_sharded_cli(p, run1, rmse1, d):
     secs["resumed_s"] = time.perf_counter() - t0
     launches = {f"14d_rank{r}_{name}": n for name in ranks
                 for r, (_, n, _) in enumerate(ranks[name])}
-    cost1 = _final_cost(run1.window_stats[0])
+    one = runs["one"].window_stats[0]
+    cost1 = _final_cost(one)
+    rmse1 = _rmse(runs["one"].trajectory, p, d, "sharded_one")
+    steps = SHARDED_CLI_MAX_NUM_ITER + 1
+    print(f"sharded 14d one device: {len(one.iterations)} iterations {_accepts(one)}; final "
+          f"cost {cost1:.6f}; RMSE {rmse1:.4f} deg; {secs['one_s']:.1f} s", flush=True)
+    _require(len(one.iterations) == steps,
+             f"14d one device: {len(one.iterations)} iterations, expected {steps}")
     for name, mode in (("fused", "fused-sharded"), ("recording", "host-sharded"),
                        ("resumed", "host")):
         res = runs[name]
@@ -2058,18 +2237,19 @@ def phase_sharded_cli(p, run1, rmse1, d):
         rel = abs(cost - cost1) / abs(cost1)
         rmse = _rmse(res.trajectory, p, d, f"sharded_{name}")
         print(f"sharded 14d {name} ({len(res.window_stats)} window, lm_mode {st.lm_mode}): "
-              f"{len(st.iterations)} iterations {_accepts(st)} (run 1: "
-              f"{len(run1.window_stats[0].iterations)} {_accepts(run1.window_stats[0])}); "
-              f"final cost {cost:.6f} vs run 1 {cost1:.6f} (rel {rel:.2e}); RMSE {rmse:.4f} "
-              f"vs run 1 {rmse1:.4f} deg; {secs[name + '_s']:.1f} s", flush=True)
+              f"{len(st.iterations)} iterations {_accepts(st)}; final cost {cost:.6f} vs one "
+              f"device {cost1:.6f} (rel {rel:.2e}); RMSE {rmse:.4f} vs one device "
+              f"{rmse1:.4f} deg; {secs[name + '_s']:.1f} s", flush=True)
         _require(st.lm_mode == mode, f"14d {name}: lm_mode {st.lm_mode}, expected {mode}")
         _require(np.isfinite(res.trajectory.knots).all() and np.isfinite(res.gx).all(),
                  f"14d {name}: NaN/Inf in the result")
         _require(rel <= SHARDED_CLI_COST_REL_TOL,
                  f"14d {name}: final cost rel {rel:.2e} > {SHARDED_CLI_COST_REL_TOL:.0e}")
         _require(abs(rmse - rmse1) <= SHARDED_RMSE_TOL_DEG,
-                 f"14d {name}: RMSE {rmse:.4f} vs run 1 {rmse1:.4f} deg")
+                 f"14d {name}: RMSE {rmse:.4f} vs one device {rmse1:.4f} deg")
     for name in ranks:
+        its = len(runs[name].window_stats[0].iterations)
+        _require(its == steps, f"14d {name}: {its} iterations, expected {steps}")
         for r, (res, n, peak) in enumerate(ranks[name]):
             forms = sum(st.count_form for st in res.window_stats)
             print(f"sharded 14d {name} rank {r}: A12 launches {n} = {forms} forming "
@@ -2113,8 +2293,10 @@ def main() -> int:
     g_launches = phase_probe()
     phase_reference(device)
     ctx = phase_main(device)
+    ctx_schur_launches = ctx["schur_launches"]
     win = phase_window_kernel(ctx)
-    a12_launches, fused_single = phase_fused(ctx)
+    schur = phase_schur(ctx)
+    a12_launches, fused_single, schur_fused = phase_fused(ctx)
     phase_resume(ctx)
     phase_cg(ctx)
     p12, p13 = {}, {}
@@ -2124,11 +2306,9 @@ def main() -> int:
         gloo_launches, err_14b, gloo_numbers = phase_sharded_gloo(ctx, d)
         sharded_launches.update(gloo_launches)
         sharded_s.update(gloo_numbers)
-        (pipeline_launches, pipe_err, scene_files, rmse_run3,
-         run1) = phase_pipeline(device, d)
-        cli_launches, sharded_s["14d"] = phase_sharded_cli(scene_files, run1, rmse_run3[1], d)
+        pipeline_launches, pipe_err, scene_files, rmse_run3 = phase_pipeline(device, d)
+        cli_launches, sharded_s["14d"] = phase_sharded_cli(scene_files, d)
         sharded_launches.update(cli_launches)
-        del run1
         p12["12a"], err_a = phase_multi_start(scene_files, rmse_run3)
         p12["12b"], err_b = phase_suite_row()
         p12["12d"], err_d = phase_compact_1k(ctx)
@@ -2202,6 +2382,14 @@ def main() -> int:
         "sector_bound_ms": g_sector,
         "graph_ms": g_graph,
         "library_graph_ms": g_lib_graph,
+    }, {
+        "name": "schur_rows",
+        "route": "cuda",
+        "source": "emba_tpu_torch/kernels/csrc/schur_rows.cu",
+        "replaces": None,
+        "launches": {"main_host_loop": ctx_schur_launches, "fused": schur_fused},
+        "library_ms": None,
+        **schur,
     }]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

@@ -384,13 +384,17 @@ def reduce_normal_eq(neq: M.NormalEq, comm: Comm) -> M.NormalEq:
         dropped=comm.all_reduce_sum(neq.dropped))
 
 
-def solve_rowchunks(red: M.NormalEq, lam, fix_first: bool, comm: Comm):
+def solve_rowchunks(red: M.NormalEq, lam, fix_first: bool, comm: Comm,
+                    rows_total=None):
     """The Schur solve of a reduced system (:func:`reduce_normal_eq`): each
     rank's chunk adds its part of S and of the right-hand side (summed over
     the ranks in one call), the small Cholesky solve runs on every rank,
-    x2 is solved on the chunks and gathered. Returns x1, x2 (2, R_pad)."""
+    x2 is solved on the chunks and gathered. Each rank lists its own
+    chunk's rows (``rows_total`` counts them, as in
+    ``model.solve_normal_eq``). Returns x1, x2 (2, R_pad)."""
     return M.solve_normal_eq(red, lam, fix_first, reduce=comm.all_reduce_sum,
-                             gather=lambda x2: comm.all_gather(x2, dim=1))
+                             gather=lambda x2: comm.all_gather(x2, dim=1),
+                             rows_total=rows_total)
 
 
 def solve_cg_rowchunks(red: M.NormalEq, lam, fix_first: bool, comm: Comm,
@@ -467,12 +471,13 @@ class Sharded:
         def form(aux, knots, Gx, Gy):
             return reduce_normal_eq(form_local(aux, knots, Gx, Gy), comm)
 
-        def solve(red, knots, Gx, Gy, lam, early_exit=True):
+        def solve(red, knots, Gx, Gy, lam, early_exit=True, rows_total=None):
             if use_cg:
                 x1, x2, cg_it, cg_err = solve_cg_rowchunks(red, lam, fix_first, comm,
                                                            early_exit)
             else:
-                (x1, x2), cg_it, cg_err = solve_rowchunks(red, lam, fix_first, comm), None, None
+                (x1, x2), cg_it, cg_err = solve_rowchunks(
+                    red, lam, fix_first, comm, rows_total), None, None
             gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, red)
             return M.update_knots(knots, x1, fix_first), gx_new, gy_new, cg_it, cg_err
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import importlib
 
-KERNELS = ("a12_accum", "gather_sum")
+KERNELS = ("a12_accum", "gather_sum", "schur_rows")
 
 
 def _module(name: str):

@@ -36,7 +36,7 @@ import torch
 from . import lie, obs, warp
 from .camera import EquirectangularCamera
 from .device import add_at
-from .kernels import a12_accum
+from .kernels import a12_accum, schur_rows
 
 # Row alignment of a compacted row space: the reference's TILE_PX, so that
 # an undersized cap keeps the same slots, and drops the same active
@@ -888,20 +888,25 @@ def _chol_solve(L, b):
     return torch.cholesky_solve(b[:, None], L)[:, 0]
 
 
+def _masked_pose_block(neq: NormalEq, fix_first: bool):
+    """(A11, b1, first kept column): with ``fix_first`` the first pose's
+    rows and columns masked out (A11 there the identity)."""
+    A11, b1 = neq.A11, neq.b1
+    if not fix_first:
+        return A11, b1, 0
+    dim = b1.shape[0]
+    m = (torch.arange(dim, device=b1.device) >= 3).to(b1.dtype)
+    return A11 * m[:, None] * m[None, :] + torch.diag(1.0 - m), b1 * m, 3
+
+
 def _masked_planes(neq: NormalEq, fix_first: bool):
     """(A11, b1, Ae, Ao) with the padded pose columns (and, with
     ``fix_first``, the first pose's rows and columns) masked out."""
-    dt = neq.b1.dtype
-    device = neq.b1.device
     dim = neq.b1.shape[0]
     dp_pad = neq.A12.shape[1] // 2
-    A11, b1 = neq.A11, neq.b1
-    cols = torch.arange(dp_pad, device=device)
-    colmask = ((cols >= (3 if fix_first else 0)) & (cols < dim)).to(dt)
-    if fix_first:
-        m = (torch.arange(dim, device=device) >= 3).to(dt)
-        A11 = A11 * m[:, None] * m[None, :] + torch.diag(1.0 - m)
-        b1 = b1 * m
+    A11, b1, lo = _masked_pose_block(neq, fix_first)
+    cols = torch.arange(dp_pad, device=neq.b1.device)
+    colmask = ((cols >= lo) & (cols < dim)).to(neq.b1.dtype)
     Ae = neq.A12[:, :dp_pad] * colmask[None, :]
     Ao = neq.A12[:, dp_pad:] * colmask[None, :]
     return A11, b1, Ae, Ao
@@ -909,28 +914,36 @@ def _masked_planes(neq: NormalEq, fix_first: bool):
 
 def _damped_a22_inv(neq: NormalEq, lam):
     """Per-pixel inverse of the LM-damped 2x2 blocks; zero where inactive.
-    A22m = A22 + lam * diag(A22)."""
+    A22m = A22 + lam * diag(A22). Returns (m00, m01, m11, live): live marks
+    the rows whose inverse is kept (active, determinant not ~0)."""
     dt = neq.a22_xx.dtype
     a = neq.a22_xx * (1.0 + lam)
     b = neq.a22_xy
     c = neq.a22_yy * (1.0 + lam)
     det = a * c - b * b
     det_safe = torch.where(torch.abs(det) < 1e-30, torch.ones_like(det), det)
-    mask = (neq.active & (torch.abs(det) >= 1e-30)).to(dt)
-    inv = mask / det_safe
-    return c * inv, -b * inv, a * inv  # m00, m01, m11
+    live = neq.active & (torch.abs(det) >= 1e-30)
+    inv = live.to(dt) / det_safe
+    return c * inv, -b * inv, a * inv, live
 
 
 def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False, reduce=None,
-                    gather=None):
+                    gather=None, rows_total=None):
     """Schur-complement solve:
 
       A11m = A11 + lam diag(A11);  A22m^-1 per 2x2 block;
-      S = A11m - A12 A22m^-1 A12^T  (two GEMMs over the column planes);
+      S = A11m - A12 A22m^-1 A12^T;
       x1 = chol_solve(S, b1 - A12 A22m^-1 b2);  x2 = A22m^-1 (b2 - A12^T x1).
 
+    Only the rows whose A22m^-1 is nonzero add to S, to the right-hand side
+    and to x2: they are listed on the device (``schur_rows.row_list``) and
+    the products run over the list (``schur_rows``: the CUDA kernel for
+    float32 on the card, the plain version on the CPU and for float64);
+    x2 is zero on every other row.
+
     ``fix_first`` gauge-fixes the first control pose by masking its rows and
-    columns. Returns x1 (3K,) and x2 (2, R_pad).
+    columns. Returns x1 (3K,) and x2 (2, R_pad). ``rows_total``, a 0-d
+    int64 tensor on the device, if given, is increased by the rows listed.
 
     The map rows of ``neq`` may be one rank's chunk of them (``dist``):
     ``reduce`` then sums a tensor over the ranks (the parts of S and of the
@@ -941,18 +954,14 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False, reduce=None,
     device = neq.b1.device
     dim = neq.b1.shape[0]
     dp_pad = neq.A12.shape[1] // 2
-    A11, b1, Ae, Ao = _masked_planes(neq, fix_first)
+    A11, b1, lo = _masked_pose_block(neq, fix_first)
 
     A11m = A11 + lam * torch.diag(torch.diag(A11))
-    m00, m01, m11 = _damped_a22_inv(neq, lam)
-
-    Ze = Ae * m00[:, None] + Ao * m01[:, None]
-    Zo = Ae * m01[:, None] + Ao * m11[:, None]
-    S_red = Ae.T @ Ze + Ao.T @ Zo
-
-    ib2x = m00 * neq.b2_x + m01 * neq.b2_y
-    ib2y = m01 * neq.b2_x + m11 * neq.b2_y
-    rhs_red = ib2x @ Ae + ib2y @ Ao
+    m00, m01, m11, live = _damped_a22_inv(neq, lam)
+    rows, count = schur_rows.row_list(live)
+    vecs = (m00, m01, m11, neq.b2_x.contiguous(), neq.b2_y.contiguous())
+    a12 = neq.A12.contiguous()
+    S_red, rhs_red = schur_rows.schur_reduce(a12, rows, count, *vecs, lo, dim)
     if reduce is not None:
         both = reduce(torch.cat([S_red, rhs_red[None]]))
         S_red, rhs_red = both[:dp_pad], both[dp_pad]
@@ -966,12 +975,10 @@ def solve_normal_eq(neq: NormalEq, lam, fix_first: bool = False, reduce=None,
     x1 = _chol_solve(_chol(S), rhs)
 
     x1_pad = torch.zeros(dp_pad, dtype=dt, device=device)
-    x1_pad[:dim] = x1
-    vx = neq.b2_x - Ae @ x1_pad
-    vy = neq.b2_y - Ao @ x1_pad
-    x2x = m00 * vx + m01 * vy
-    x2y = m01 * vx + m11 * vy
-    x2 = torch.stack([x2x, x2y])
+    x1_pad[lo:dim] = x1[lo:]
+    x2 = schur_rows.back_substitute(a12, rows, count, *vecs, x1_pad)
+    if rows_total is not None:
+        rows_total.add_(count)
     return x1, x2 if gather is None else gather(x2)
 
 

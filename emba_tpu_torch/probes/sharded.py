@@ -16,7 +16,7 @@ name, so they live in the port, which imports no JAX).
   two-rank run with one fault planted in the sharded window:
 
       python -m emba_tpu_torch.probes.sharded [--faults none,halo,a12,events]
-          [--ranks 2] [--out PATH]
+          [--ranks 2] [--max-num-iter 50] [--out PATH]
 
   renders the suite row (``probes.suite_run.write_suite_scene``), runs
   ``cli run`` on it on one device (phase 11's run 1), then ``cli run
@@ -259,6 +259,8 @@ def main(argv=None) -> int:
     ap.add_argument("--faults", default=",".join(FAULTS),
                     help=f"comma-separated, of {','.join(FAULTS)} (default all)")
     ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--max-num-iter", type=int, default=50,
+                    help="the LM's --max-num-iter on every run (default 50)")
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args(argv)
     faults = args.faults.split(",")
@@ -270,7 +272,7 @@ def main(argv=None) -> int:
     line = {"device": card_name_and_power_limit(), "ranks": args.ranks}
     with tempfile.TemporaryDirectory() as d:
         _n, kept, p = write_suite_scene(d)
-        base = ["run"] + suite_argv(p)
+        base = ["run"] + suite_argv(p, max_num_iter=args.max_num_iter)
 
         def rmse(traj, name):
             path = os.path.join(d, f"{name}.txt")

@@ -183,9 +183,11 @@ class Phases:
     * ``objective(knots, Gx, Gy) -> (aux, cost_data, cost_reg)``: the costs
       at a state and the forming input ``aux``;
     * ``form(aux, knots, Gx, Gy) -> system``: the normal equations;
-    * ``solve(system, knots, Gx, Gy, lam, early_exit) -> (knots', Gx',
-      Gy', cg_it, cg_err)``: damped solve and trial state (CG's iterations
-      and relative residual, None for the Schur solve);
+    * ``solve(system, knots, Gx, Gy, lam, early_exit, rows_total) ->
+      (knots', Gx', Gy', cg_it, cg_err)``: damped solve and trial state
+      (CG's iterations and relative residual, None for the Schur solve);
+      the Schur solve adds the map rows it ran over to ``rows_total`` (a
+      0-d int64 device tensor) if given;
     * ``sys_stats(system) -> (active pixels, dropped measurements)``."""
 
     objective: Callable
@@ -229,9 +231,9 @@ class Local:
         def form(aux, knots, Gx, Gy):
             return _form(aux, knots, Gx, Gy, dev_win, cfg, num_knots, prev)
 
-        def solve(neq, knots, Gx, Gy, lam, early_exit=True):
+        def solve(neq, knots, Gx, Gy, lam, early_exit=True, rows_total=None):
             return _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
-                                 early_exit)
+                                 early_exit, rows_total)
 
         return Phases(objective=objective, form=form, solve=solve)
 
@@ -249,16 +251,18 @@ LOCAL = Local()
 
 
 def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
-                  early_exit=True):
+                  early_exit=True, rows_total=None):
     """Schur or CG solve + trial state. Returns (knots', Gx', Gy', cg_it,
     cg_err): CG's iterations and relative residual as 0-d tensors, None
     for the Schur solve. ``early_exit=False`` for a solve captured in a
-    CUDA graph (see :func:`model.solve_normal_eq_cg`)."""
+    CUDA graph (see :func:`model.solve_normal_eq_cg`); ``rows_total``: as
+    in :func:`model.solve_normal_eq`."""
     if use_cg:
         x1, x2, cg_it, cg_err = M.solve_normal_eq_cg(neq, lam, fix_first,
                                                      early_exit=early_exit)
     else:
-        (x1, x2), cg_it, cg_err = M.solve_normal_eq(neq, lam, fix_first), None, None
+        (x1, x2), cg_it, cg_err = M.solve_normal_eq(
+            neq, lam, fix_first, rows_total=rows_total), None, None
     knots_new = M.update_knots(knots, x1, fix_first)
     gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, neq)
     return knots_new, gx_new, gy_new, cg_it, cg_err
@@ -356,6 +360,7 @@ def solve_window(
         sched.cost_min = resume_state["cost_min"]
 
     neq = None
+    rows_total = torch.zeros((), dtype=torch.int64, device=device)
     while sched.running():
         # on resume the system is formed once even if the interrupted run's
         # last step was a reject: forming is deterministic in the state
@@ -373,8 +378,8 @@ def solve_window(
             callback(sched.it, Gx, Gy, dict(lam=sched.lam, cost_min=sched.cost_min))
 
         t0 = time.perf_counter()
-        knots_new, gx_new, gy_new, cg_it, cg_err = phases.solve(neq, knots, Gx, Gy,
-                                                                sched.lam)
+        knots_new, gx_new, gy_new, cg_it, cg_err = phases.solve(
+            neq, knots, Gx, Gy, sched.lam, rows_total=rows_total)
         _sync(device)
         t1 = time.perf_counter()
         stats.time_solve_s += t1 - t0
@@ -414,13 +419,37 @@ def solve_window(
             checkpoint_cb(lm_state_dict(sched, knots, Gx, Gy))
 
     stats.time_total_s = time.perf_counter() - t_loop0
+    _count_rows(use_cg, rows_total)
     return knots, Gx, Gy, stats
 
 
-def _loop_phases(phases: Phases, use_cg, early_exit, cg_rec):
+def _count_rows(use_cg, rows_total):
+    """Counts ``solve.rows`` in the run record (:mod:`obs`): the map rows the
+    window's Schur solves ran over, summed on the device in ``rows_total``
+    and read once, after the loop's last host read."""
+    if not use_cg:
+        obs.count("solve.rows", int(rows_total))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Recs:
+    """Device tensors a loop's solves write: CG's iterations and relative
+    residual of the last solve (2,), the Schur solves' listed rows ()."""
+
+    cg: torch.Tensor
+    rows: torch.Tensor
+
+    @staticmethod
+    def zeros(dtype, device) -> "_Recs":
+        return _Recs(torch.zeros(2, dtype=dtype, device=device),
+                     torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _loop_phases(phases: Phases, use_cg, early_exit, recs: _Recs):
     """The callables of :func:`lm.lm_while` from a window's :class:`Phases`.
     With ``use_cg``, each solve writes its CG iterations and relative
-    residual into ``cg_rec`` (2,)."""
+    residual into ``recs.cg``; a Schur solve adds its listed rows to
+    ``recs.rows``."""
 
     def objective(knots_, gx_, gy_):
         lin, cost_data, cost_reg = phases.objective(knots_, gx_, gy_)
@@ -428,9 +457,9 @@ def _loop_phases(phases: Phases, use_cg, early_exit, cg_rec):
 
     def solve_update(neq, knots_, gx_, gy_, lam):
         knots_new, gx_new, gy_new, cg_it, cg_err = phases.solve(neq, knots_, gx_, gy_, lam,
-                                                                early_exit)
+                                                                early_exit, recs.rows)
         if use_cg:
-            cg_rec.copy_(torch.stack([cg_it.to(cg_rec.dtype), cg_err.to(cg_rec.dtype)]))
+            recs.cg.copy_(torch.stack([cg_it.to(recs.cg.dtype), cg_err.to(recs.cg.dtype)]))
         return knots_new, gx_new, gy_new
 
     return dict(objective=objective, form=phases.form, solve_update=solve_update,
@@ -448,7 +477,7 @@ _GRAPHED: dict = {}
 def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
                     fix_first, use_cg, max_num_iter, num_times_tol_fun_sat,
                     placement=LOCAL):
-    """The cached (:class:`lm.GraphedLoop`, CG record) of this call's key,
+    """The cached (:class:`lm.GraphedLoop`, :class:`_Recs`) of this call's key,
     with ``dev_win`` loaded into the window its graphs read (and, for a
     streamed window, its prev records gathered into theirs). Counts, in the
     run record (:mod:`obs`), ``lm.graph_hit`` for a cached loop, else
@@ -461,13 +490,13 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
     hit = _GRAPHED.get(key)
     if hit is not None:
         obs.count("lm.graph_hit")
-        win, prev, cg_rec, loop = hit
+        win, prev, recs, loop = hit
         for name, t in tensors.items():
             getattr(win, name).copy_(t)
         if prev is not None:
             for buf, t in zip(prev, placement.prev(win, cfg)):
                 buf.copy_(t)
-        return loop, cg_rec
+        return loop, recs
     if _GRAPHED:
         obs.count("lm.graph_evict")
     obs.count("lm.graph_capture")
@@ -475,14 +504,14 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
     torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
     win = dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
     prev = placement.prev(win, cfg)
-    cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
+    recs = _Recs.zeros(Gx.dtype, Gx.device)
     phases = placement.phases(win, cfg, num_knots, damping, fix_first, use_cg, prev)
     loop = lm_mod.GraphedLoop(
-        knots, Gx, Gy, **_loop_phases(phases, use_cg, False, cg_rec),
+        knots, Gx, Gy, **_loop_phases(phases, use_cg, False, recs),
         tol_fun=tol_fun, max_num_iter=max_num_iter,
         num_times_tol_fun_sat=num_times_tol_fun_sat)
-    _GRAPHED[key] = (win, prev, cg_rec, loop)
-    return loop, cg_rec
+    _GRAPHED[key] = (win, prev, recs, loop)
+    return loop, recs
 
 
 def solve_window_fused(
@@ -530,15 +559,16 @@ def solve_window_fused(
     sched = dict(tol_fun=tol_fun, max_num_iter=max_num_iter,
                  num_times_tol_fun_sat=num_times_tol_fun_sat)
     if Gx.device.type == "cuda" and placement.graphs:
-        loop, cg_rec = _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping,
-                                       fix_first=fix_first, use_cg=use_cg,
-                                       placement=placement, **sched)
+        loop, recs = _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping,
+                                     fix_first=fix_first, use_cg=use_cg,
+                                     placement=placement, **sched)
+        recs.rows.zero_()  # the build's warm-up solve ran through it
         run = loop.run
     else:
-        cg_rec = torch.zeros(2, dtype=Gx.dtype, device=Gx.device)
+        recs = _Recs.zeros(Gx.dtype, Gx.device)
         phases = _loop_phases(
             placement.phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                             placement.prev(dev_win, cfg)), use_cg, True, cg_rec)
+                             placement.prev(dev_win, cfg)), use_cg, True, recs)
         carry_aux = placement.carry_aux(cfg)
 
         def run(knots, Gx, Gy, **kw):
@@ -546,10 +576,11 @@ def solve_window_fused(
                                    **kw)
 
     def on_step():
-        it, err = cg_rec.tolist()
+        it, err = recs.cg.tolist()
         stats.cg_iterations.append(int(it))
         stats.cg_error.append(err)
 
     out = run(knots, Gx, Gy, on_step=on_step if (use_cg and stats is not None) else None,
               stats=stats)
+    _count_rows(use_cg, recs.rows)
     return out if return_trace else out[:6]

@@ -684,3 +684,97 @@ def test_cuda_device_window_equals_host_build(cuda_device, dtype, pad):
     nb, item = len(win.batch_s), dtype.itemsize
     assert rec.counters["window.upload_bytes"] <= (9 * win.num_events + (4 + item) * nb
                                                    + lut.size * item)
+
+
+SCHUR_CELLS = [  # the benchmark cells' row spaces, columns and listed rows
+    pytest.param(1 << 19, 320, 291, 42_000, id="bicycle"),
+    pytest.param(1 << 19, 608, 603, 52_000, id="boxes"),
+    pytest.param(1 << 21, 320, 291, 600_000, id="dvx_4k"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_pad,dp,dim,n", SCHUR_CELLS)
+def test_cuda_schur_rows_matches_f64_at_cell_shapes(cuda_device, r_pad, dp, dim, n):
+    """The active-row Schur kernel at the cells' shapes against float64 sums
+    over the listed rows: S_red (exactly symmetric) and rhs_red to 1e-4 of
+    their largest magnitude, because each f32 partial sums up to 2n/splits
+    terms in sequence (about 2e4 at the 4K shape; sqrt(L) u is 1e-5, L u
+    1e-3); x2 to 1e-4 of its largest, and exactly zero on every other row.
+    Two calls give the same bits, and each call is one launch."""
+    from emba_tpu_torch.probes import schur_probe as SP
+    from emba_tpu_torch.kernels import schur_rows as SR
+
+    neq = SP.synthetic_system(r_pad, dp, dim, n, cuda_device)
+    m00, m01, m11, live = TM._damped_a22_inv(neq, torch.tensor(1e-3, device=cuda_device))
+    rows, count = SR.row_list(live)
+    assert int(count) == n
+    vecs = (m00, m01, m11, neq.b2_x, neq.b2_y)
+    x = torch.zeros(dp, device=cuda_device)
+    x[3:dim] = 1e-2 * torch.randn(dim - 3, device=cuda_device)
+    before = SR.launches
+    got = SR.schur_reduce(neq.A12, rows, count, *vecs, 3, dim)
+    again = SR.schur_reduce(neq.A12, rows, count, *vecs, 3, dim)
+    x2 = SR.back_substitute(neq.A12, rows, count, *vecs, x)
+    assert SR.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(x2, SR.back_substitute(neq.A12, rows, count, *vecs, x))
+    S_d, rhs_d, x2_d, _scale, r = SP.listed_f64(neq, rows, count, vecs, 3, dim, x)
+    S, rhs = got
+    assert torch.equal(S, S.T)
+    assert (S.double() - S_d).abs().max() <= 1e-4 * S_d.abs().max()
+    assert (rhs.double() - rhs_d).abs().max() <= 1e-4 * rhs_d.abs().max()
+    assert (x2[:, r].double() - x2_d).abs().max() <= 1e-4 * x2_d.abs().max()
+    others = torch.ones(r_pad, dtype=torch.bool, device=cuda_device)
+    others[r] = False
+    assert bool((x2[:, others] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_schur_graph_reads_the_count_on_the_device(cuda_device):
+    """One CUDA graph of the whole Schur solve, captured once, replayed over
+    three activity patterns of other counts (5%, 30%, 0.1% of 2^17 rows,
+    bicycle's columns) loaded into its input buffers: each replay gives
+    the bits of an eager solve of that pattern, so the kernels read the
+    row list and its length on the device."""
+    from emba_tpu_torch.probes import schur_probe as SP
+
+    r_pad, dp, dim = 1 << 17, 320, 291
+    neq = SP.synthetic_system(r_pad, dp, dim, r_pad // 2, cuda_device)
+    lam = torch.tensor(1e-3, device=cuda_device)
+    TM.solve_normal_eq(neq, lam, True)  # builds the library, makes the solver handles
+    torch.cuda.synchronize()
+    phase = lm.CapturedPhase(lambda: TM.solve_normal_eq(neq, lam, True))
+    assert phase.launches == {"schur_rows": 2}
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for share in (0.05, 0.30, 0.001):
+        pattern = torch.rand(r_pad, generator=g, device=cuda_device) < share
+        neq.active.copy_(pattern)
+        want = TM.solve_normal_eq(neq, lam, True)
+        phase.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(phase.out, want):
+            assert torch.equal(x, y)
+        assert bool((phase.out[1][:, ~pattern] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_f64_solve_takes_the_plain_path(cuda_device):
+    """A float64 system on the card is solved by the plain active-row
+    version (no launch of the kernel) and matches the same solve on the
+    CPU to 1e-12."""
+    from emba_tpu_torch.kernels import schur_rows as SR
+    from emba_tpu_torch.probes import schur_probe as SP
+
+    neq32 = SP.synthetic_system(1 << 14, 64, 60, 3000, cuda_device)
+    neq = TM.NormalEq(**{f.name: (getattr(neq32, f.name).double()
+                                  if getattr(neq32, f.name).is_floating_point()
+                                  else getattr(neq32, f.name))
+                         for f in dataclasses.fields(neq32)})
+    before = SR.launches
+    x1, x2 = TM.solve_normal_eq(neq, 1e-3, True)
+    assert SR.launches == before
+    cpu = TM.NormalEq(**{f.name: getattr(neq, f.name).cpu() for f in dataclasses.fields(neq)})
+    x1c, x2c = TM.solve_normal_eq(cpu, 1e-3, True)
+    assert (x1.cpu() - x1c).abs().max() <= 1e-12 * x1c.abs().max()
+    assert (x2.cpu() - x2c).abs().max() <= 1e-12 * x2c.abs().max()

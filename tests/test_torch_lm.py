@@ -268,6 +268,43 @@ def test_graphed_window_cache_counts_in_the_run_record(eager_graphs, monkeypatch
     assert rec.repeats["lm.status_wait"][1] == sum(r["solve"] for r in replays)
 
 
+def test_graphed_window_counts_the_rows_its_solves_listed(eager_graphs, monkeypatch):
+    """The cached graphed window (graphs replaced by the eager stand-in):
+    the solve phase adds each solve's listed rows to the device scalar of
+    its records, the host reads the status once a step as before (one
+    lm.status_wait a solve replay), and a run zeroed first counts its own
+    replays only."""
+    from emba_tpu_torch.kernels import schur_rows as SR
+
+    monkeypatch.setattr(TS, "_GRAPHED", {})
+    listed = []
+    row_list = SR.row_list
+
+    def counting(mask):
+        rows, count = row_list(mask)
+        listed.append(int(count))
+        return rows, count
+
+    monkeypatch.setattr(SR, "row_list", counting)
+    scene, dev = small_window()
+    cfg = TM.ModelConfig(c_th=0.2, pano_width=128, pano_height=64,
+                         thres_valid_pixel=3, alpha=2.0)
+    start = [torch.from_numpy(a) for a in (scene.traj.knots, scene.gx, scene.gy)]
+    loop, recs = TS._graphed_window(*start, dev, cfg, start[0].shape[0], 1.0, tol_fun=1e-3,
+                                    fix_first=True, use_cg=False, max_num_iter=4,
+                                    num_times_tol_fun_sat=2)
+    recs.rows.zero_()
+    del listed[:]
+    rec = obs.Record()
+    stats = TL.LoopStats()
+    with obs.recording(rec):
+        loop.run(*start, stats=stats)
+    rec.finish()
+    assert len(listed) == stats.replays["solve"] > 0
+    assert int(recs.rows) == sum(listed) > 0
+    assert rec.repeats["lm.status_wait"][1] == stats.replays["solve"]
+
+
 def test_schedule_step_and_keep_running():
     f64 = torch.float64
 

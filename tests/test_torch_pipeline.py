@@ -560,6 +560,31 @@ def test_run_record_holds_the_pipeline_spans_in_causal_order(dataset):
     assert tot["window.prepare"]["total_s"] > 0 and tot["window.prep_wait"]["count"] == 1
 
 
+@pytest.mark.parametrize("mode", ["fused", "host"])
+def test_run_record_counts_the_rows_each_solve_listed(dataset, monkeypatch, mode):
+    """Two windows: the run record's counter solve.rows is the sum, over the
+    windows' Schur solves (one an LM step), of the rows each solve listed;
+    the loops read nothing more on the host (no lm.status_wait on the
+    CPU, whose loops read their decision each step as before)."""
+    from emba_tpu_torch.kernels import schur_rows as SR
+
+    listed = []
+    row_list = SR.row_list
+
+    def counting(mask):
+        rows, count = row_list(mask)
+        listed.append(int(count))
+        return rows, count
+
+    monkeypatch.setattr(SR, "row_list", counting)
+    pipe = port_pipe(dataset, TC.BAConfig(**TWO, fused_lm=mode == "fused"))
+    res = pipe.run()
+    c = pipe.record.counters
+    assert len(listed) == c["lm.steps"] == sum(len(st.iterations) for st in res.window_stats)
+    assert c["solve.rows"] == sum(listed) > 0
+    assert "lm.status_wait" not in pipe.record.repeats
+
+
 def test_pipeline_pairs_on_the_device_only(dataset, monkeypatch):
     """A one-window job never pairs on the host: with
     ``pairing.compute_prev_index`` raising, the job runs and gives the same
