@@ -1179,27 +1179,22 @@ def check_forming(name, ctx):
     """The window's first forming pass at its start state through the A12
     kernel and through its plain version on the same inputs: every
     NormalEq field within KERNEL_REL_TOL of the plain one, the row space,
-    the active count and ``dropped`` equal. A streamed window
-    (``cfg.stream_chunk``) forms with ``model.form_normal_eq_streamed``,
-    every chunk's call chained through ``carry`` in both. Returns (max abs
+    the active count and ``dropped`` equal. The pass is the window's mode's
+    (``model.window_mode``): a streamed window (``cfg.stream_chunk``)
+    chains every chunk's call through ``carry`` in both. Returns (max abs
     err, dropped, active count, R_pad)."""
     import torch
 
-    from emba_tpu_torch import solver
+    from emba_tpu_torch import model as M
 
     knots, Gx, Gy = ctx["start"]
-    cfg, dev = ctx["cfg"], ctx["dev"]
-    prev = solver._prev(dev, cfg)
-    aux = solver._objective_fn(cfg, prev)(knots, Gx, Gy, dev, cfg)[0]
-
-    def form():
-        return solver._form(aux, knots, Gx, Gy, dev, cfg, knots.shape[0], prev)
-
-    got = form()
+    mode = M.window_mode(ctx["dev"], ctx["cfg"])
+    aux = mode.objective(knots, Gx, Gy)[0]
+    got = mode.form(aux, knots, Gx, Gy)
     with _plain_forming():
-        want = form()
+        want = mode.form(aux, knots, Gx, Gy)
     torch.cuda.synchronize()
-    del aux, prev
+    del aux, mode
     max_abs, parts = 0.0, []
     for f in ("A11", "b1", "a22_xx", "a22_xy", "a22_yy", "b2_x", "b2_y", "A12"):
         g, w = getattr(got, f), getattr(want, f)
@@ -1705,8 +1700,8 @@ def phase_map_only_1k(ctx, dev, cfg):
     dev64 = _window_f64_cpu(ctx, cfg.stream_chunk)
     k64, z64 = knots.double().cpu(), torch.zeros(z.shape, dtype=torch.float64)
     gx64, gy64, costs64 = M.solve_map_only(k64, z64, z64, dev64, cfg)
-    nem = M.cost_and_activity_streamed(knots, gx, gy, dev, cfg)[1].cpu()
-    nem64 = M.cost_and_activity_streamed(k64, gx64, gy64, dev64, cfg)[1]
+    nem = M.window_mode(dev, cfg).cost_and_activity(knots, gx, gy)[1].cpu()
+    nem64 = M.window_mode(dev64, cfg).cost_and_activity(k64, gx64, gy64)[1]
     same = (nem == nem64).reshape(z.shape)
     mag = max(float(gx64.abs().max()), float(gy64.abs().max()))
     err_same = max(float((a.double().cpu() - b)[same].abs().max())
@@ -1741,7 +1736,7 @@ def phase_stream_1k(ctx, classic_fused_loop_s):
 
     from emba_tpu_torch import model as M
     from emba_tpu_torch import solver
-    from emba_tpu_torch.probes.a12_parts import streamed_forming_inputs
+    from emba_tpu_torch.probes.a12_parts import first_pass_inputs
 
     sensor = ctx["sensor"]
     dev = M.DeviceWindow.from_window(ctx["win"], sensor.bearing_lut(), sensor.width,
@@ -1787,7 +1782,7 @@ def phase_stream_1k(ctx, classic_fused_loop_s):
         loops[f"{tier}_fused"], loops[f"{tier}_host"] = runs["fused"][0], runs["host"][0]
         err = max(err, check_forming(f"{name} first forming pass", sctx)[0])
         if tier == "full":
-            chunks, num_pix, knots, order = streamed_forming_inputs(sctx)
+            chunks, num_pix, knots, order = first_pass_inputs(sctx)
             chain = check_chain(f"13a streamed pass N={dev.pol_signed.shape[0]}", chunks,
                                 num_pix, knots, order)
             del chunks
@@ -2156,9 +2151,9 @@ def phase_sharded_gloo(ctx, d):
     mo = ranks[0]["map_only"]
     sgx, sgy = (torch.as_tensor(a) for a in (mo["gx"], mo["gy"]))
     cfg = dataclasses.replace(ctx["cfg"], stream_chunk=1 << 20)
-    nem = M.cost_and_activity_streamed(knots, gx, gy, ctx["dev"], cfg)[1].cpu()
-    nem_s = M.cost_and_activity_streamed(knots, sgx.to(gx.device), sgy.to(gx.device),
-                                         ctx["dev"], cfg)[1].cpu()
+    mode = M.window_mode(ctx["dev"], cfg)
+    nem = mode.cost_and_activity(knots, gx, gy)[1].cpu()
+    nem_s = mode.cost_and_activity(knots, sgx.to(gx.device), sgy.to(gx.device))[1].cpu()
     same = (nem == nem_s).reshape(z.shape)
     mag = max(float(gx.abs().max()), float(gy.abs().max()))
     err = max(float((a.cpu().double() - b.double())[same].abs().max())

@@ -18,16 +18,19 @@ window it solves uses an ``(n, 1)`` mesh.
   last event at the pixel on the latest earlier rank that saw the pixel.
   Each rank exports one record a sensor pixel and folds the earlier ranks'
   records in ``ceil(log2(world))`` rounds of ``shift`` (a selection, so the
-  result is exact): :func:`linearize_sharded` ships the warped positions,
-  Jacobian rows and segments each linearization; :func:`prev_records`
-  ships the bearings and batch ids once a streamed window.
+  result is exact): a linearization (:func:`linearize_sharded`) ships the
+  warped positions, Jacobian rows and segments; :func:`prev_records` ships
+  the bearings and batch ids once a streamed window.
 * :class:`Sharded`: the placement of ``solver.solve_window`` and
-  ``solver.solve_window_fused`` for a rank's shard. Its phases form the
-  normal equations on the rank's events (the A12 kernel at the global row
-  space, L2 regularizer on rank 0 only), sum the pose block over the ranks
-  and reduce-scatter the map rows into chunks (:func:`reduce_normal_eq`),
-  and solve on the chunks (``model.solve_normal_eq`` or CG, with the ranks'
-  partial sums reduced and x2 gathered). The results are whole on every
+  ``solver.solve_window_fused`` for a rank's shard. It wraps the model's
+  mode of the shard (``model.window_mode`` with the halo's linearization
+  and prev records): the passes run on the rank's events (the A12 kernel
+  at the global row space, L2 regularizer on rank 0 only), the inlier
+  count map and the data cost are summed over the ranks, the pose block
+  summed and the map rows reduce-scattered into chunks
+  (:func:`reduce_normal_eq`), and the solves run on the chunks
+  (``model.solve_normal_eq`` or CG, with the ranks' partial sums reduced
+  and x2 gathered). The results are whole on every
   rank, so every rank takes the same accept/reject decisions. Over NCCL a
   CUDA window captures its phases, collectives included, in CUDA graphs;
   over gloo a CUDA graph cannot hold a collective that goes through the
@@ -39,15 +42,16 @@ window it solves uses an ``(n, 1)`` mesh.
   :func:`dryrun` runs every sharded configuration on a tiny problem.
 
 The reference's GSPMD cross-check (``make_sharded_step``) and its 2-D mesh
-(``make_mesh``) are not ported (ROADMAP). ``light_trial`` does not apply to a
-sharded window: it forms from the full linearization, as the reference's
-sharded window does, with the same steps.
+(``make_mesh``) are not ported (ROADMAP). A sharded window with
+``light_trial`` forms from the full linearization, as the reference's does,
+with the same steps (``model.window_mode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import os
 import pickle
 import shutil
@@ -330,10 +334,10 @@ def linearize_sharded(knots, Gx, Gy, dev: M.DeviceWindow, cfg: M.ModelConfig, co
                       num_sensor_pix: int, need_deriv: bool = True) -> M.Linearization:
     """This rank's linearization with exact cross-rank pairing: the local
     events' warp, the prev events' positions, Jacobian rows and segments
-    from the halo (``model.linearize_from_warp`` on them), and the inlier
-    count map summed over the ranks (a pixel's activity depends on every
-    rank's events). Each field is the single-device linearization's on this
-    rank's events, bit for bit."""
+    from the halo (``model.linearize_from_warp`` on them). Each field is
+    the single-device linearization's on this rank's events, bit for bit;
+    the inlier count map counts this rank's events (:class:`Sharded` sums
+    it over the ranks: a pixel's activity depends on every rank's)."""
     pm, cp_idx, dpm = warp.warp_events(knots, dev.batch_s, dev.batch_u, dev.batch_ids,
                                        dev.bearings, cfg.pano, cfg.spline_order, need_deriv)
     pmx, pmy = pm
@@ -342,9 +346,8 @@ def linearize_sharded(knots, Gx, Gy, dev: M.DeviceWindow, cfg: M.ModelConfig, co
     prev_f, prev_i = _prev_features(dev, comm, num_sensor_pix, torch.cat(rows),
                                     cp_idx[None])
     dpm_prev = prev_f[2:].reshape(2, d, -1) if need_deriv else None
-    lin = M.linearize_from_warp(pmx, pmy, cp_idx, dpm, prev_f[:2], dpm_prev, prev_i[0],
-                                dev.has_prev, dev.pol_signed, Gx, Gy, cfg, need_deriv)
-    return dataclasses.replace(lin, num_ev_map=comm.all_reduce_sum(lin.num_ev_map))
+    return M.linearize_from_warp(pmx, pmy, cp_idx, dpm, prev_f[:2], dpm_prev, prev_i[0],
+                                 dev.has_prev, dev.pol_signed, Gx, Gy, cfg, need_deriv)
 
 
 def prev_records(dev: M.DeviceWindow, comm: Comm, num_sensor_pix: int):
@@ -409,7 +412,7 @@ def solve_cg_rowchunks(red: M.NormalEq, lam, fix_first: bool, comm: Comm,
 
 
 @dataclasses.dataclass(frozen=True)
-class Sharded:
+class Sharded(solver.Local):
     """The placement of a window whose events are split over the ranks of
     ``comm`` (``solver.solve_window`` / ``solve_window_fused`` with
     ``placement=``; their ``dev_win`` is this rank's :func:`shard_window`).
@@ -427,61 +430,41 @@ class Sharded:
         c = self.comm
         return (c.world, c.rank, c.backend, self.num_sensor_pix)
 
-    def carry_aux(self, cfg):
-        return False
-
     def num_events(self, dev_win) -> int:
         return int(dev_win.pol_signed.shape[0]) * self.comm.world
 
-    def prev(self, dev_win, cfg):
-        if cfg.stream_chunk is None:
-            return None
-        return prev_records(dev_win, self.comm, self.num_sensor_pix)
+    def mode(self, dev_win, cfg) -> M.WindowMode:
+        """The model's mode of this rank's shard, its pairing through the
+        halo, the regularizer on rank 0 only, wrapped: the inlier count map
+        of the forming input and the data cost summed over the ranks, the
+        normal equations reduced (:func:`reduce_normal_eq`). No pass
+        carries its forming input (``carry_aux``), as in the reference's
+        sharded window."""
+        comm, nsp = self.comm, self.num_sensor_pix
+        halo = (functools.partial(linearize_sharded, dev=dev_win, cfg=cfg, comm=comm,
+                                  num_sensor_pix=nsp),
+                functools.partial(prev_records, dev_win, comm, nsp))
+        local = M.window_mode(dev_win, cfg, 1.0 if comm.rank == 0 else 0.0, halo)
 
-    def phases(self, dev_win, cfg, num_knots, damping, fix_first, use_cg,
-               prev) -> solver.Phases:
-        comm = self.comm
-        reg_scale = 1.0 if comm.rank == 0 else 0.0  # the regularizer counted once
-        if cfg.stream_chunk is not None:
-            objective_local = solver._objective_fn(cfg, prev)
-
-            def objective(knots, Gx, Gy):
-                aux, cost_data, cost_reg = objective_local(knots, Gx, Gy, dev_win, cfg)
-                if cfg.stream_light:
-                    aux = dataclasses.replace(
-                        aux, num_ev_map=comm.all_reduce_sum(aux.num_ev_map))
-                else:
-                    aux = comm.all_reduce_sum(aux)
-                return aux, comm.all_reduce_sum(cost_data), cost_reg
-
-            def form_local(aux, knots, Gx, Gy):
-                return M.form_normal_eq_streamed(aux, knots, Gx, Gy, dev_win, cfg,
-                                                 num_knots, reg_scale,
-                                                 prev_bearings=prev[0], prev_bids=prev[1])
-        else:
-            def objective(knots, Gx, Gy):
-                lin = linearize_sharded(knots, Gx, Gy, dev_win, cfg, comm,
-                                        self.num_sensor_pix)
-                return (lin, comm.all_reduce_sum(M.data_cost(lin.e, cfg)),
-                        M.reg_cost(Gx, Gy, cfg.alpha))
-
-            def form_local(lin, knots, Gx, Gy):
-                return M.form_normal_eq(lin, Gx, Gy, cfg, num_knots, reg_scale)
+        def objective(knots, Gx, Gy):
+            aux, cost_data, cost_reg = local.objective(knots, Gx, Gy)
+            aux = dataclasses.replace(aux, num_ev_map=comm.all_reduce_sum(aux.num_ev_map))
+            return aux, comm.all_reduce_sum(cost_data), cost_reg
 
         def form(aux, knots, Gx, Gy):
-            return reduce_normal_eq(form_local(aux, knots, Gx, Gy), comm)
+            return reduce_normal_eq(local.form(aux, knots, Gx, Gy), comm)
 
-        def solve(red, knots, Gx, Gy, lam, early_exit=True, rows_total=None):
-            if use_cg:
-                x1, x2, cg_it, cg_err = solve_cg_rowchunks(red, lam, fix_first, comm,
-                                                           early_exit)
-            else:
-                (x1, x2), cg_it, cg_err = solve_rowchunks(
-                    red, lam, fix_first, comm, rows_total), None, None
-            gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, red)
-            return M.update_knots(knots, x1, fix_first), gx_new, gy_new, cg_it, cg_err
+        def cost_and_activity(knots, Gx, Gy):
+            cost, nem = local.cost_and_activity(knots, Gx, Gy)
+            return comm.all_reduce_sum(cost), comm.all_reduce_sum(nem)
 
-        return solver.Phases(objective=objective, form=form, solve=solve)
+        return dataclasses.replace(local, objective=objective, form=form,
+                                   cost_and_activity=cost_and_activity, carry_aux=False)
+
+    def damped_solve(self, red, lam, fix_first, use_cg, early_exit=True, rows_total=None):
+        if use_cg:
+            return solve_cg_rowchunks(red, lam, fix_first, self.comm, early_exit)
+        return (*solve_rowchunks(red, lam, fix_first, self.comm, rows_total), None, None)
 
     def shard(self, dev_win):
         return shard_window(dev_win, self.comm)
@@ -494,16 +477,6 @@ class Sharded:
         return M.solve_map_only(knots, Gx, Gy, dev_win, cfg, num_iters,
                                 *prev_records(dev_win, self.comm, self.num_sensor_pix),
                                 comm=self.comm)
-
-    def cost_and_activity(self, knots, Gx, Gy, dev_win, cfg):
-        """(data cost, (HW,) inlier count map) over every rank's events."""
-        if cfg.stream_chunk is not None:
-            cost, nem = M.cost_and_activity_streamed(knots, Gx, Gy, dev_win, cfg,
-                                                     *self.prev(dev_win, cfg))
-            return self.comm.all_reduce_sum(cost), self.comm.all_reduce_sum(nem)
-        lin = linearize_sharded(knots, Gx, Gy, dev_win, cfg, self.comm,
-                                self.num_sensor_pix, need_deriv=False)
-        return self.comm.all_reduce_sum(M.data_cost(lin.e, cfg)), lin.num_ev_map
 
 
 # ---------------------------------------------------------------------------

@@ -250,9 +250,10 @@ class GraphedLoop:
     changes between runs from tensors they hold, not from Python values.
 
     The streamed tiers run through the same four graphs: ``aux`` is the
-    (HW,) inlier count map in the FULL tier and the light linearization in
-    the LIGHT tier, and each chunk's work is captured unrolled (the chunk
-    count follows from the window's shape). Here too the system is formed
+    (HW,) inlier count map's record (``model.Activity``) in the FULL tier
+    and the light linearization in the LIGHT tier, and each chunk's work is
+    captured unrolled (the chunk count follows from the window's shape).
+    Here too the system is formed
     only after an accept, as the reference's host loop does for streamed
     windows; the reference's fused FULL-tier loop re-forms on rejects as
     well (:func:`lm_while` with ``carry_aux``), only so that XLA does not

@@ -12,15 +12,18 @@ Counterpart of the classic path of ``emba_tpu/model.py``:
   with the L2 map regularizer, formed by ``kernels.a12_accum`` (the CUDA
   kernel on the card, its plain version on the CPU), over the full pixel
   domain or, with ``compact_cap``, over the compacted active pixels;
-* the light linearization (``need_deriv=False``: residual fields only) and
-  its forming pass :func:`form_normal_eq_light`, for ``light_trial``;
-* the streamed passes (``stream_chunk``): the objective, the light
-  linearization and the forming pass recomputed chunk by chunk from the
-  per-batch pose tables, the A12 kernel chained through its ``carry``
-  (FULL tier: nothing event-sized survives a pass; LIGHT tier,
-  ``stream_light``: the (N,) residual fields stay resident), and the
-  map-only closed-form solve of a fixed trajectory;
-* the Schur solve as two GEMMs over the A12 column planes and one Cholesky.
+* the window's mode (:func:`window_mode`), the one owner of what differs
+  between classic, ``light_trial`` (the light linearization,
+  ``need_deriv=False``, its Jacobians recomputed in the forming pass) and
+  the streamed passes (``stream_chunk``: the objective and the forming
+  pass recomputed chunk by chunk from the per-batch pose tables; FULL tier:
+  nothing event-sized survives a pass; LIGHT tier, ``stream_light``: the
+  (N,) residual fields stay resident). Every mode forms through one loop
+  (:func:`_form_pass`), the A12 kernel chained through its ``carry``
+  across a pass's event slices, and takes its pose Jacobians from one
+  function (:func:`_pose_jacobians`);
+* the map-only closed-form solve of a fixed trajectory;
+* the Schur solve over the active map rows and one Cholesky.
 
 Per-event arrays keep the reference layouts: (N,) vectors, (3, N)
 bearings, (D, N) Jacobians.
@@ -29,6 +32,8 @@ bearings, (D, N) Jacobians.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -289,21 +294,24 @@ def _pair_residual(pmx, pmy, ppx, ppy, has_prev, pol_signed, gmaps, cfg):
     return dx, dy, inlier, pm_pix, g_at, e
 
 
-def _pose_jac_coeffs(g_at, dx, dy, cfg):
-    """(tx, ty, hx, hy): ``Jc = tx dpm_c[0] + ty dpm_c[1]``,
-    ``Jp = hx dpm_p[0] + hy dpm_p[1]`` ("curr": the reference math; "mid":
-    the symmetric midpoint halves)."""
+def _pose_jacobians(g_at, dx, dy, dpm_c, dpm_p, cfg):
+    """The pose Jacobians (Jc, Jp), (D, n) each, of n measurements: the
+    stacked map gather ``g_at`` (5, n) at their sampling pixels, their
+    pairing displacements ``dx``, ``dy`` and the warp derivatives
+    ``dpm_c``, ``dpm_p`` (2, D, n) of their curr and prev events chained
+    as ``Jc = tx dpm_c[0] + ty dpm_c[1]``, ``Jp = hx dpm_p[0] + hy
+    dpm_p[1]`` ("curr": the reference math; "mid": the symmetric midpoint
+    halves). Every mode's Jacobians come from here."""
     gx, gy = g_at[0], g_at[1]
     if cfg.sample_mode == "mid":
         sx = dx * g_at[2] + dy * g_at[3]
         sy = dx * g_at[3] + dy * g_at[4]
-        return gx + 0.5 * sx, gy + 0.5 * sy, 0.5 * sx - gx, 0.5 * sy - gy
-    return (
-        gx + dx * g_at[2] + dy * g_at[3],
-        gy + dx * g_at[3] + dy * g_at[4],
-        -gx,
-        -gy,
-    )
+        tx, ty, hx, hy = gx + 0.5 * sx, gy + 0.5 * sy, 0.5 * sx - gx, 0.5 * sy - gy
+    else:
+        tx, ty = gx + dx * g_at[2] + dy * g_at[3], gy + dx * g_at[3] + dy * g_at[4]
+        hx, hy = -gx, -gy
+    return (tx[None, :] * dpm_c[0] + ty[None, :] * dpm_c[1],
+            hx[None, :] * dpm_p[0] + hy[None, :] * dpm_p[1])
 
 
 def _stacked_gmaps(Gx, Gy, need_deriv: bool = True):
@@ -334,9 +342,7 @@ def linearize_from_warp(pmx, pmy, cp_idx, dpm_dcp, pm_prev, dpm_prev, i_p,
         return Linearization(e=e, inlier=inlier, pm_pix=pm_pix, num_ev_map=num_ev_map,
                              dx=dx, dy=dy, Jc=empty, Jp=empty, i_c=cp_idx, i_p=i_p)
 
-    tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
-    Jc = tx[None, :] * dpm_dcp[0] + ty[None, :] * dpm_dcp[1]  # (D, N)
-    Jp = hx[None, :] * dpm_prev[0] + hy[None, :] * dpm_prev[1]
+    Jc, Jp = _pose_jacobians(g_at, dx, dy, dpm_dcp, dpm_prev, cfg)
     return Linearization(e=e, inlier=inlier, pm_pix=pm_pix, num_ev_map=num_ev_map,
                          dx=dx, dy=dy, Jc=Jc, Jp=Jp, i_c=cp_idx, i_p=i_p)
 
@@ -403,7 +409,8 @@ class NormalEq:
 
 
 def row_pad(cfg: ModelConfig) -> int:
-    """R_pad, the rows of the map-domain row space the solve runs over: the
+    """R_pad, the rows of the map-domain row space (the A12 kernel's rows;
+    the solve lists the active ones among them on the device): the
     pixels rounded up to the kernel's ``ROW_ALIGN``, or with
     ``compact_cap`` the cap (at most the pixels) rounded up to
     ``COMPACT_ALIGN``."""
@@ -464,59 +471,83 @@ def _rows_and_weights(e, inlier, pm_pix, active, pix2row, r_pad, cfg, dt):
     return row_of_meas, wA, dropped
 
 
-def forming_inputs(lin: Linearization, cfg: ModelConfig, dt):
-    """What one forming pass hands the A12 kernel, and its row space:
-    (row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)).
-    Uncompacted, a measurement's row is its pixel. Compacted, it is the
-    pixel's slot; a measurement on an active pixel past the cap is dropped
-    from every block (else the system turns asymmetric) and counted in
-    ``dropped``, on the device."""
-    active, r_pad, pix2row, row_active = _row_space(lin.num_ev_map, cfg)
-    row_of_meas, wA, dropped = _rows_and_weights(lin.e, lin.inlier, lin.pm_pix, active,
-                                                 pix2row, r_pad, cfg, dt)
-    return row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active)
+# The (N,) fields of a Linearization that a pass reads, in the order of its
+# ``pieces``.
+_PASS_FIELDS = ("e", "inlier", "pm_pix", "i_c", "i_p", "dx", "dy")
+
+
+def _fields(lin: Linearization, lo: int, hi: int):
+    """Views of ``lin``'s :data:`_PASS_FIELDS` on the events [lo, hi)."""
+    return tuple(getattr(lin, k)[lo:hi] for k in _PASS_FIELDS)
+
+
+def _lin_pieces(lin: Linearization):
+    """``pieces(lo, hi)`` of a resident full linearization: views of its
+    fields and of its Jacobians, (e, inlier, pm_pix, i_c, i_p, dx, dy, Jc,
+    Jp)."""
+    return lambda lo, hi: (*_fields(lin, lo, hi), lin.Jc[:, lo:hi], lin.Jp[:, lo:hi])
+
+
+def _form_pass(bounds, pieces, num_ev_map, Gx, Gy, cfg: ModelConfig, num_knots: int,
+               reg_scale=None) -> NormalEq:
+    """The forming pass of every mode: the normal equations with the L2 map
+    regularizer (``alpha`` times ``reg_scale``, on active rows). The row
+    space comes once from the inlier count map; then each event slice of
+    ``bounds`` hands its measurements ``pieces(lo, hi)`` = (e, inlier,
+    pm_pix, i_c, i_p, dx, dy, Jc, Jp), with their rows and weights, to the
+    A12 kernel, chained through ``carry``: a pass holds one A12 at any
+    slice count. A measurement enters iff it is an inlier on an active
+    pixel (>= thres_valid_pixel inliers) that has a row; one on an active
+    pixel past a compaction cap is dropped from every block (else the
+    system turns asymmetric) and counted in ``dropped``, on the device."""
+    dim_pose = 3 * num_knots
+    active, r_pad, pix2row, row_active = _row_space(num_ev_map, cfg)
+    carry = dropped = None
+    for lo, hi in bounds:
+        e, inl, pmp, ic, ip, dx, dy, Jc, Jp = pieces(lo, hi)
+        rows, wA, drop = _rows_and_weights(e, inl, pmp, active, pix2row, r_pad, cfg, e.dtype)
+        carry = a12_accum.a12_accumulate(rows, ic, ip, Jc, Jp, dx, dy, e, wA, r_pad,
+                                         dim_pose, cfg.spline_order, carry=carry)
+        dropped = drop if dropped is None else dropped + drop
+    a12, px5, a11b = carry
+    dp_pad = a12.shape[1] // 2
+    dt = e.dtype
+    alpha = cfg.alpha if reg_scale is None else cfg.alpha * reg_scale
+    act_f = row_active.to(dt)
+    pix_rows = pix2row.long()
+
+    def to_rows(G):
+        # one active pixel a row at most: the sums are exact; slot r_pad
+        # takes the dropped pixels and is cut off
+        g = torch.where(active, G.reshape(-1).to(dt),
+                        torch.zeros((), dtype=dt, device=G.device))
+        out = torch.zeros(r_pad + 1, dtype=dt, device=G.device)
+        return out.index_add_(0, pix_rows, g)[:r_pad]
+
+    gx_row, gy_row = to_rows(Gx), to_rows(Gy)
+    return NormalEq(
+        A11=a11b[:dim_pose, :dim_pose],
+        b1=a11b[dp_pad, :dim_pose],
+        a22_xx=px5[:, 0] + alpha * act_f,
+        a22_xy=px5[:, 1],
+        a22_yy=px5[:, 2] + alpha * act_f,
+        b2_x=px5[:, 3] - alpha * gx_row * act_f,
+        b2_y=px5[:, 4] - alpha * gy_row * act_f,
+        A12=a12,
+        active=row_active,
+        pix2row=pix2row,
+        active_pix=active,
+        active_count=torch.sum(active.to(torch.int32)).to(torch.int32),
+        dropped=dropped,
+    )
 
 
 def form_normal_eq(lin: Linearization, Gx, Gy, cfg: ModelConfig, num_knots: int,
                    reg_scale=None) -> NormalEq:
-    """Build the Schur-structured normal equations with the L2 map
-    regularizer. A measurement enters iff it is an inlier and lands on an
-    active pixel (>= thres_valid_pixel inliers) that has a row."""
-    dt = lin.e.dtype
-    dim_pose = 3 * num_knots
-    row_of_meas, wA, r_pad, dropped, (active, pix2row, row_active) = forming_inputs(
-        lin, cfg, dt)
-    a12, px5, a11b = a12_accum.a12_accumulate(
-        row_of_meas, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA,
-        r_pad, dim_pose, cfg.spline_order,
-    )
-    dp_pad = a12.shape[1] // 2
-    return _finish_normal_eq(
-        a11b[:dim_pose, :dim_pose], a11b[dp_pad, :dim_pose], px5[:, 0], px5[:, 1],
-        px5[:, 2], px5[:, 3], px5[:, 4], a12, row_active, pix2row, active, Gx, Gy,
-        cfg, r_pad, dt, dropped, reg_scale,
-    )
-
-
-def form_normal_eq_light(lin: Linearization, knots, Gx, Gy, dev: DeviceWindow,
-                         cfg: ModelConfig, num_knots: int, reg_scale=None) -> NormalEq:
-    """The forming pass of ``light_trial``: ``lin`` is a light
-    linearization (``linearize(..., need_deriv=False)``); this pass
-    recomputes the (D, N) Jacobians (the warp's derivative chain and the
-    prev gather of its rows) at ``knots`` and forms the normal equations,
-    the same ops on the same inputs as ``form_normal_eq(linearize(...))``.
-    LM runs it after accepted steps only, so a rejected trial pays for the
-    cost alone."""
-    d = cfg.dim_block
-    _, _, dpm = warp.warp_events(knots, dev.batch_s, dev.batch_u, dev.batch_ids,
-                                 dev.bearings, cfg.pano, cfg.spline_order)
-    dpm_prev = dpm.reshape(2 * d, -1)[:, dev.prev_idx.long()].reshape(2, d, -1)
-    g_at = _stacked_gmaps(Gx, Gy)[:, lin.pm_pix.long()]
-    tx, ty, hx, hy = _pose_jac_coeffs(g_at, lin.dx, lin.dy, cfg)
-    Jc = tx[None, :] * dpm[0] + ty[None, :] * dpm[1]
-    Jp = hx[None, :] * dpm_prev[0] + hy[None, :] * dpm_prev[1]
-    full = dataclasses.replace(lin, Jc=Jc, Jp=Jp)
-    return form_normal_eq(full, Gx, Gy, cfg, num_knots, reg_scale)
+    """The classic forming pass (:func:`_form_pass`) from a full
+    linearization: one slice, views of ``lin``."""
+    return _form_pass([(0, lin.e.shape[0])], _lin_pieces(lin), lin.num_ev_map, Gx, Gy, cfg,
+                      num_knots, reg_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -542,25 +573,18 @@ def stream_bounds(n: int, chunk: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + chunk, n)) for lo in range(0, max(n, 1), chunk)]
 
 
-def _prev_or_records(dev, prev_bearings, prev_bids):
-    if prev_bearings is None:
-        return prev_records(dev)
-    return prev_bearings, prev_bids
-
-
-def _make_stream_chunk_fn(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
-                          need_deriv: bool, prev_bearings=None, prev_bids=None):
-    """The chunk recompute of the FULL tier: the per-batch pose tables and
-    the stacked map planes once, then ``pieces(lo, hi)`` re-runs the warp
-    of the events [lo, hi) and of their prev events (from the prev
-    records), the pairing residual (the shared :func:`_pair_residual`) and,
-    with ``need_deriv``, the Jacobians (:func:`_pose_jac_coeffs`): the
-    values of :func:`linearize_from_warp` on those events. Chunk inputs
-    are views of the window. Returns (bounds, pieces); ``pieces`` gives
-    (e, inlier, pm_pix, i_c, i_p, dx, dy) and, with ``need_deriv``, (Jc,
-    Jp) after them."""
+def _chunk_pieces(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig, prev,
+                  need_deriv: bool = True, lin: Linearization | None = None):
+    """The chunk recompute of the streamed passes: the pose tables and map
+    planes once, then ``pieces(lo, hi)`` re-runs the warp of the events
+    [lo, hi) and of their prev events (from the prev records ``prev``), the
+    pairing residual and, with ``need_deriv``, the Jacobians: the values of
+    :func:`linearize_from_warp` on those events, (e, inlier, pm_pix, i_c,
+    i_p, dx, dy) and then (Jc, Jp). With ``lin``, the LIGHT tier's light
+    linearization, the residual fields are its slices and only the
+    Jacobians are recomputed."""
     order = cfg.spline_order
-    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
+    pb, pbid = prev
     R_b, J_b = warp.spline_tables(knots, dev.batch_s, dev.batch_u, order, need_deriv)
     gmaps = _stacked_gmaps(Gx, Gy, need_deriv)
 
@@ -570,135 +594,169 @@ def _make_stream_chunk_fn(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
             cfg.pano, order, need_deriv)
         pm_p, ip_c, dpm_p = warp.warp_from_tables(
             R_b, J_b, dev.batch_s, pbid[lo:hi], pb[:, lo:hi], cfg.pano, order, need_deriv)
-        dx, dy, inl, pmp, g_at, e = _pair_residual(
-            pm_c[0], pm_c[1], pm_p[0], pm_p[1], dev.has_prev[lo:hi],
-            dev.pol_signed[lo:hi], gmaps, cfg)
+        if lin is None:
+            dx, dy, inl, pmp, g_at, e = _pair_residual(
+                pm_c[0], pm_c[1], pm_p[0], pm_p[1], dev.has_prev[lo:hi],
+                dev.pol_signed[lo:hi], gmaps, cfg)
+            got = (e, inl, pmp, ic_c, ip_c, dx, dy)
+        else:
+            got = _fields(lin, lo, hi)
+            g_at = gmaps[:, got[2].long()]
         if not need_deriv:
-            return e, inl, pmp, ic_c, ip_c, dx, dy
-        tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
-        Jc = tx[None, :] * dpm_c[0] + ty[None, :] * dpm_c[1]
-        Jp = hx[None, :] * dpm_p[0] + hy[None, :] * dpm_p[1]
-        return e, inl, pmp, ic_c, ip_c, dx, dy, Jc, Jp
+            return got
+        return (*got, *_pose_jacobians(g_at, got[5], got[6], dpm_c, dpm_p, cfg))
 
-    return stream_bounds(dev.pol_signed.shape[0], cfg.stream_chunk), pieces
+    return pieces
 
 
-def _make_stream_chunk_fn_light(lin: Linearization, knots, Gx, Gy, dev: DeviceWindow,
-                                cfg: ModelConfig, prev_bearings=None, prev_bids=None):
-    """The chunk recompute of the LIGHT tier: the (N,) fields of the light
-    linearization ``lin`` stay resident (slices of them are the chunk's);
-    only the Jacobians are recomputed, from one warp of the chunk's events
-    and one of their prev events. ``pieces`` has the contract of
-    :func:`_make_stream_chunk_fn` with ``need_deriv``."""
-    order = cfg.spline_order
-    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
-    R_b, J_b = warp.spline_tables(knots, dev.batch_s, dev.batch_u, order, True)
-    gmaps = _stacked_gmaps(Gx, Gy)
-
-    def pieces(lo, hi):
-        _, _, dpm_c = warp.warp_from_tables(R_b, J_b, dev.batch_s, dev.batch_ids[lo:hi],
-                                            dev.bearings[:, lo:hi], cfg.pano, order)
-        _, _, dpm_p = warp.warp_from_tables(R_b, J_b, dev.batch_s, pbid[lo:hi],
-                                            pb[:, lo:hi], cfg.pano, order)
-        pmp, dx, dy = lin.pm_pix[lo:hi], lin.dx[lo:hi], lin.dy[lo:hi]
-        g_at = gmaps[:, pmp.long()]
-        tx, ty, hx, hy = _pose_jac_coeffs(g_at, dx, dy, cfg)
-        Jc = tx[None, :] * dpm_c[0] + ty[None, :] * dpm_c[1]
-        Jp = hx[None, :] * dpm_p[0] + hy[None, :] * dpm_p[1]
-        return (lin.e[lo:hi], lin.inlier[lo:hi], pmp, lin.i_c[lo:hi], lin.i_p[lo:hi],
-                dx, dy, Jc, Jp)
-
-    return stream_bounds(lin.e.shape[0], cfg.stream_chunk), pieces
-
-
-def _activity_and_cost(bounds, pieces, cfg, dt, device):
-    """Pass over the chunks: (data cost, (HW,) int32 inlier count map).
-    Integer adds are exact, so the map is the same in any order."""
+def _activity_and_cost(bounds, pieces, cfg, dt, device, out=()):
+    """Pass over the chunks: (data cost, (HW,) int32 inlier count map),
+    each chunk's :data:`_PASS_FIELDS` written into the (N,) buffers ``out``
+    if given. Integer adds are exact, so the map is the same in any
+    order."""
     cost = torch.zeros((), dtype=dt, device=device)
     nem = torch.zeros(cfg.num_pix, dtype=torch.int32, device=device)
     for lo, hi in bounds:
-        e, inl, pmp = pieces(lo, hi)[:3]
+        got = pieces(lo, hi)
+        for buf, v in zip(out, got):
+            buf[lo:hi] = v
+        e, inl, pmp = got[:3]
+        # the chunk's other fields go now, not after the next chunk's
+        # recompute, where a pass peaks
+        del got
         nem.index_add_(0, pmp.long(), inl.to(torch.int32))
         cost = cost + data_cost(e, cfg)
     return cost, nem
 
 
-def cost_and_activity_streamed(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
-                               prev_bearings=None, prev_bids=None):
-    """The FULL tier's objective: (data cost, (HW,) inlier count map),
-    chunk by chunk, with no event-sized output: the streamed counterpart
-    of ``linearize(..., need_deriv=False)`` and :func:`data_cost`."""
-    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
-                                           prev_bearings, prev_bids)
-    return _activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)
+# ---------------------------------------------------------------------------
+# The window's mode.
+# ---------------------------------------------------------------------------
 
 
-def linearize_streamed_light(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
-                             prev_bearings=None, prev_bids=None):
-    """The LIGHT tier's objective: the light linearization of
-    ``linearize(..., need_deriv=False)`` (the same fields, by the shared
-    residual core), computed chunk by chunk into its (N,) fields, and the
-    data cost summed a chunk at a time. Returns (lin, cost)."""
-    dt, device = Gx.dtype, Gx.device
+@dataclasses.dataclass(frozen=True)
+class Activity:
+    """The FULL streamed tier's forming input: the (HW,) int32 inlier count
+    map alone (its forming pass recomputes every per-event field)."""
+
+    num_ev_map: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowMode:
+    """What one window's LM loop runs (:func:`window_mode`), over the window
+    it was built for:
+
+    * ``objective(knots, Gx, Gy) -> (aux, cost_data, cost_reg)``; the
+      forming input ``aux`` holds ``num_ev_map``, the inlier count map;
+    * ``form(aux, knots, Gx, Gy) -> NormalEq`` at the state of ``aux``;
+    * ``chunks(aux, knots, Gx, Gy) -> (bounds, pieces)``: that pass's input;
+    * ``cost_and_activity(knots, Gx, Gy) -> (cost_data, num_ev_map)``,
+      keeping nothing event-sized;
+    * ``reload()``: gather the prev records of a streamed window again,
+      after its arrays were overwritten in place (a cached graph's window).
+
+    ``carry_aux``: ``lm.lm_while`` carries ``aux`` and forms every
+    iteration (the FULL tier, as the reference's fused loop counts)."""
+
+    objective: Callable
+    form: Callable
+    chunks: Callable
+    cost_and_activity: Callable
+    reload: Callable
+    carry_aux: bool
+
+
+def window_mode(dev: DeviceWindow, cfg: ModelConfig, reg_scale=None, halo=None) -> WindowMode:
+    """The mode of a window: the one place that reads ``stream_chunk``,
+    ``stream_light`` and ``light_trial`` to choose the passes. Every mode
+    forms through :func:`_form_pass` over its own (bounds, pieces):
+
+    * classic: one slice, views of the objective's linearization;
+    * ``light_trial``: the objective is the light linearization; the
+      forming pass (after accepted steps only) recomputes its Jacobians
+      from the warp of every event and the prev rows gathered by
+      ``prev_idx``, so a rejected trial pays for the cost alone;
+    * ``stream_chunk``, FULL tier: the :func:`stream_bounds` slices, each
+      recomputed from the pose tables and the prev records (gathered here
+      once); the objective keeps the count map alone (:class:`Activity`);
+    * LIGHT tier (``stream_light``): the objective is the light
+      linearization, chunk by chunk; a pass recomputes the Jacobians only.
+
+    ``reg_scale`` scales the regularizer. ``halo``: a shard's ``(linearize,
+    records)`` (``dist.Sharded``): ``linearize(knots, Gx, Gy,
+    need_deriv=)`` and ``records()``, its prev records, both through the
+    halo. ``light_trial`` then forms from the full linearization, as the
+    reference's sharded window does (a shard cannot gather prev rows by
+    ``prev_idx``)."""
     n = dev.pol_signed.shape[0]
-    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
-                                           prev_bearings, prev_bids)
-    e = torch.empty(n, dtype=dt, device=device)
-    inl = torch.empty(n, dtype=torch.bool, device=device)
-    pmp, ic, ip = (torch.empty(n, dtype=torch.int32, device=device) for _ in range(3))
-    dx, dy = torch.empty(n, dtype=dt, device=device), torch.empty(n, dtype=dt, device=device)
-    cost = torch.zeros((), dtype=dt, device=device)
-    nem = torch.zeros(cfg.num_pix, dtype=torch.int32, device=device)
-    for lo, hi in bounds:
-        got = pieces(lo, hi)
-        for buf, v in zip((e, inl, pmp, ic, ip, dx, dy), got):
-            buf[lo:hi] = v
-        nem.index_add_(0, got[2].long(), got[1].to(torch.int32))
-        cost = cost + data_cost(got[0], cfg)
-    empty = torch.zeros((cfg.dim_block, 0), dtype=dt, device=device)
-    return Linearization(e=e, inlier=inl, pm_pix=pmp, num_ev_map=nem, dx=dx, dy=dy,
-                         Jc=empty, Jp=empty, i_c=ic, i_p=ip), cost
+    light_trial = cfg.light_trial and halo is None
+    lin_at, records = halo or (functools.partial(linearize, dev=dev, cfg=cfg),
+                               functools.partial(prev_records, dev))
+    prev, carry_aux = None, False
+    if cfg.stream_chunk is None:
+        bounds = [(0, n)]
 
+        def aux_and_cost(knots, Gx, Gy):
+            lin = lin_at(knots, Gx, Gy, need_deriv=not light_trial)
+            return lin, data_cost(lin.e, cfg)
 
-def form_normal_eq_streamed(aux, knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
-                            num_knots: int, reg_scale=None, prev_bearings=None,
-                            prev_bids=None) -> NormalEq:
-    """The streamed forming pass: the normal equations of
-    :func:`form_normal_eq`, with the linearization recomputed in chunks of
-    ``cfg.stream_chunk`` events and each chunk added into the same
-    accumulators: the A12 kernel's first call makes them and every later
-    call adds into them in place (``carry``), so a pass launches the kernel
-    once a chunk and holds one A12. ``aux`` is the objective's forming
-    input at the state formed: the (HW,) inlier count map in the FULL tier
-    (:func:`cost_and_activity_streamed`), the light linearization in the
-    LIGHT tier (``cfg.stream_light``, :func:`linearize_streamed_light`).
-    ``dropped`` sums each chunk's, on the device."""
-    dt = Gx.dtype
-    dim_pose = 3 * num_knots
-    if cfg.stream_light:
-        num_ev_map = aux.num_ev_map
-        bounds, pieces = _make_stream_chunk_fn_light(aux, knots, Gx, Gy, dev, cfg,
-                                                     prev_bearings, prev_bids)
+        def chunks(lin, knots, Gx, Gy):
+            if light_trial:
+                d = cfg.dim_block
+                _, _, dpm = warp.warp_events(knots, dev.batch_s, dev.batch_u, dev.batch_ids,
+                                             dev.bearings, cfg.pano, cfg.spline_order)
+                dpm_prev = dpm.reshape(2 * d, -1)[:, dev.prev_idx.long()].reshape(2, d, -1)
+                g_at = _stacked_gmaps(Gx, Gy)[:, lin.pm_pix.long()]
+                Jc, Jp = _pose_jacobians(g_at, lin.dx, lin.dy, dpm, dpm_prev, cfg)
+                lin = dataclasses.replace(lin, Jc=Jc, Jp=Jp)
+            return bounds, _lin_pieces(lin)
+
+        def cost_and_activity(knots, Gx, Gy):
+            lin = lin_at(knots, Gx, Gy, need_deriv=False)
+            return data_cost(lin.e, cfg), lin.num_ev_map
     else:
-        num_ev_map = aux
-        bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, True,
-                                               prev_bearings, prev_bids)
-    active, r_pad, pix2row, row_active = _row_space(num_ev_map, cfg)
-    carry = None
-    dropped = torch.zeros((), dtype=torch.int32, device=Gx.device)
-    for lo, hi in bounds:
-        e, inl, pmp, ic, ip, dx, dy, Jc, Jp = pieces(lo, hi)
-        rows, wA, drop = _rows_and_weights(e, inl, pmp, active, pix2row, r_pad, cfg, dt)
-        carry = a12_accum.a12_accumulate(rows, ic, ip, Jc, Jp, dx, dy, e, wA, r_pad,
-                                         dim_pose, cfg.spline_order, carry=carry)
-        dropped = dropped + drop
-    a12, px5, a11b = carry
-    dp_pad = a12.shape[1] // 2
-    return _finish_normal_eq(
-        a11b[:dim_pose, :dim_pose], a11b[dp_pad, :dim_pose], px5[:, 0], px5[:, 1],
-        px5[:, 2], px5[:, 3], px5[:, 4], a12, row_active, pix2row, active, Gx, Gy,
-        cfg, r_pad, dt, dropped, reg_scale,
-    )
+        prev = records()
+        bounds = stream_bounds(n, cfg.stream_chunk)
+
+        def cost_and_activity(knots, Gx, Gy, out=()):
+            pieces = _chunk_pieces(knots, Gx, Gy, dev, cfg, prev, False)
+            return _activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device, out)
+
+        def chunks(aux, knots, Gx, Gy):
+            lin = aux if cfg.stream_light else None
+            return bounds, _chunk_pieces(knots, Gx, Gy, dev, cfg, prev, lin=lin)
+
+        if cfg.stream_light:
+            def aux_and_cost(knots, Gx, Gy):
+                dt, int32 = Gx.dtype, torch.int32
+                f = {k: torch.empty(n, dtype=t, device=Gx.device) for k, t in zip(
+                    _PASS_FIELDS, (dt, torch.bool, int32, int32, int32, dt, dt))}
+                cost, nem = cost_and_activity(knots, Gx, Gy, f.values())
+                empty = torch.zeros((cfg.dim_block, 0), dtype=dt, device=Gx.device)
+                return Linearization(**f, num_ev_map=nem, Jc=empty, Jp=empty), cost
+        else:
+            carry_aux = True
+
+            def aux_and_cost(knots, Gx, Gy):
+                cost, nem = cost_and_activity(knots, Gx, Gy)
+                return Activity(nem), cost
+
+    def objective(knots, Gx, Gy):
+        return (*aux_and_cost(knots, Gx, Gy), reg_cost(Gx, Gy, cfg.alpha))
+
+    def form(aux, knots, Gx, Gy):
+        return _form_pass(*chunks(aux, knots, Gx, Gy), aux.num_ev_map, Gx, Gy, cfg,
+                          knots.shape[0], reg_scale)
+
+    def reload():
+        if prev is not None:
+            for buf, t in zip(prev, records()):
+                buf.copy_(t)
+
+    return WindowMode(objective=objective, form=form, chunks=chunks,
+                      cost_and_activity=cost_and_activity, reload=reload,
+                      carry_aux=carry_aux)
 
 
 # The map-only step sums its per-pixel blocks in a fixed order
@@ -753,8 +811,9 @@ def map_only_step(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig,
     dt, device = Gx.dtype, Gx.device
     hw = cfg.num_pix
     rows = -(-hw // comm.world)
-    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False,
-                                           prev_bearings, prev_bids)
+    bounds = stream_bounds(dev.pol_signed.shape[0], cfg.stream_chunk)
+    prev = prev_records(dev) if prev_bearings is None else (prev_bearings, prev_bids)
+    pieces = _chunk_pieces(knots, Gx, Gy, dev, cfg, prev, False)
     cost0, nem = _activity_and_cost(bounds, pieces, cfg, dt, device)
     cost0, nem = comm.all_reduce_sum(cost0), comm.all_reduce_sum(nem)
     active = nem >= cfg.thres_valid_pixel
@@ -826,50 +885,16 @@ def solve_map_only(knots, Gx, Gy, dev: DeviceWindow, cfg: ModelConfig, num_iters
     if cfg.compact_cap is not None:
         cfg = dataclasses.replace(cfg, compact_cap=None)
     comm = comm or _Whole
-    pb, pbid = _prev_or_records(dev, prev_bearings, prev_bids)
+    pb, pbid = prev_records(dev) if prev_bearings is None else (prev_bearings, prev_bids)
     costs = []
     for _ in range(num_iters):
         Gx, Gy, cost, _nem = map_only_step(knots, Gx, Gy, dev, cfg, pb, pbid, comm)
         costs.append(float(cost))
-    bounds, pieces = _make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, False, pb, pbid)
+    bounds = stream_bounds(dev.pol_signed.shape[0], cfg.stream_chunk)
+    pieces = _chunk_pieces(knots, Gx, Gy, dev, cfg, (pb, pbid), False)
     cost = _activity_and_cost(bounds, pieces, cfg, Gx.dtype, Gx.device)[0]
     costs.append(float(comm.all_reduce_sum(cost)))
     return Gx, Gy, costs
-
-
-def _finish_normal_eq(A11, b1, a22xx, a22xy, a22yy, b2x, b2y, A12, row_active,
-                      pix2row, active_pix, Gx, Gy, cfg, r_pad, dt, dropped,
-                      reg_scale=None):
-    """Apply the L2 map regularizer on active rows and assemble the
-    NormalEq; the map values reach their rows through ``pix2row``."""
-    alpha = cfg.alpha if reg_scale is None else cfg.alpha * reg_scale
-    act_f = row_active.to(dt)
-    rows = pix2row.long()
-
-    def to_rows(G):
-        # one active pixel a row at most: the sums are exact; slot r_pad
-        # takes the dropped pixels and is cut off
-        g = torch.where(active_pix, G.reshape(-1).to(dt),
-                        torch.zeros((), dtype=dt, device=G.device))
-        out = torch.zeros(r_pad + 1, dtype=dt, device=G.device)
-        return out.index_add_(0, rows, g)[:r_pad]
-
-    gx_row, gy_row = to_rows(Gx), to_rows(Gy)
-    return NormalEq(
-        A11=A11,
-        b1=b1,
-        a22_xx=a22xx + alpha * act_f,
-        a22_xy=a22xy,
-        a22_yy=a22yy + alpha * act_f,
-        b2_x=b2x - alpha * gx_row * act_f,
-        b2_y=b2y - alpha * gy_row * act_f,
-        A12=A12,
-        active=row_active,
-        pix2row=pix2row,
-        active_pix=active_pix,
-        active_count=torch.sum(active_pix.to(torch.int32)).to(torch.int32),
-        dropped=dropped,
-    )
 
 
 # ---------------------------------------------------------------------------

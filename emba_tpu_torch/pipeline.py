@@ -162,12 +162,14 @@ CLASSIC_CAP_LARGE_ROWS = 8_000_000
 ROWS_SMALL = 1 << 20
 # The largest row space a joint window runs at: a limit of the card's
 # memory, not of the events. Fitted to the two windows near 25-30 GB above
-# (2^19 rows and 29.4M events, 2^21 rows and 4M), a window takes about
-# 13 KB a row (A12 and its Schur products, at ~95 knots) and 600 bytes an
-# event; an uncompacted 4K panorama (2^23 rows) would need over 100 GB for
-# its A12 alone, however few its events. Streaming does not shrink it:
-# every chunk adds into the same A12. Where the automatic cap would lie
-# above this (auto_compact_cap bounds the active pixels by events /
+# (2^19 rows and 29.4M events, 2^21 rows and 4M), a window took about
+# 13 KB a row (A12 and the full-row Schur products, at ~95 knots) and 600
+# bytes an event. The fit dates from before the Schur solve ran over the
+# active rows alone, which takes less a row; it is kept as it was. An
+# uncompacted 4K panorama (2^23 rows) would need over 100 GB for its A12
+# alone, however few its events. Streaming does not shrink it: every
+# chunk adds into the same A12. Where the automatic cap would lie above
+# this (auto_compact_cap bounds the active pixels by events /
 # thres_valid_pixel, which leaves a 4K panorama uncompacted from ~6.3M
 # events on, and overshoots the pixels a window touches by one to two
 # orders of magnitude), the pipeline sizes the cap from the active pixels

@@ -66,45 +66,41 @@ def synthetic_inputs(rng, n, hw, knots, order, device, pix=None, zero_w=False):
             for a, t in zip(host, types)]
 
 
-def forming_inputs(w):
-    """(inputs, num_pix, knots, order) of ``a12_accumulate`` in the first
-    forming pass of a window of :func:`main_window` (or any window given as
-    ``dev``, ``cfg`` and ``start``): its linearization at the start state
-    and the rows and weights ``form_normal_eq`` gives it; ``num_pix`` is
-    the row space's R_pad (compacted under ``cfg.compact_cap``)."""
-    knots, Gx, Gy = w["start"]
-    cfg = w["cfg"]
-    lin = M.linearize(knots, Gx, Gy, w["dev"], cfg)
-    rows, wA, r_pad, _, _ = M.forming_inputs(lin, cfg, lin.e.dtype)
-    args = [rows, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA]
-    return args, r_pad, knots.shape[0], cfg.spline_order
-
-
-def streamed_forming_inputs(w):
-    """The inputs of each ``a12_accumulate`` call of a streamed window's
-    first forming pass (``w`` as for :func:`forming_inputs`, its ``cfg``
-    with ``stream_chunk``; FULL or LIGHT tier): the chunk recompute at the
-    start state and the rows and weights ``form_normal_eq_streamed`` gives
-    the kernel, one list of nine a chunk. Returns (chunks, num_pix, knots,
-    order); the pass chains the calls through ``carry``."""
-    knots, Gx, Gy = w["start"]
-    cfg, dev = w["cfg"], w["dev"]
-    pb, pbid = M.prev_records(dev)
-    if cfg.stream_light:
-        lin, _ = M.linearize_streamed_light(knots, Gx, Gy, dev, cfg, pb, pbid)
-        nem = lin.num_ev_map
-        bounds, pieces = M._make_stream_chunk_fn_light(lin, knots, Gx, Gy, dev, cfg, pb,
-                                                       pbid)
-    else:
-        _, nem = M.cost_and_activity_streamed(knots, Gx, Gy, dev, cfg, pb, pbid)
-        bounds, pieces = M._make_stream_chunk_fn(knots, Gx, Gy, dev, cfg, True, pb, pbid)
-    active, r_pad, pix2row, _ = M._row_space(nem, cfg)
-    chunks = []
+def pass_inputs(mode, aux, knots, Gx, Gy, cfg):
+    """The inputs of each ``a12_accumulate`` call of a forming pass of the
+    window's ``mode`` (``model.window_mode``, or a placement's) from its
+    forming input ``aux`` at (knots, Gx, Gy): one list of nine a slice, the
+    rows and weights the pass gives the kernel, which chains the calls
+    through ``carry``. Returns (calls, R_pad)."""
+    bounds, pieces = mode.chunks(aux, knots, Gx, Gy)
+    active, r_pad, pix2row, _ = M._row_space(aux.num_ev_map, cfg)
+    calls = []
     for lo, hi in bounds:
         e, inl, pmp, ic, ip, dx, dy, Jc, Jp = pieces(lo, hi)
         rows, wA, _ = M._rows_and_weights(e, inl, pmp, active, pix2row, r_pad, cfg, e.dtype)
-        chunks.append([rows, ic, ip, Jc, Jp, dx, dy, e, wA])
-    return chunks, r_pad, knots.shape[0], cfg.spline_order
+        calls.append([rows, ic, ip, Jc, Jp, dx, dy, e, wA])
+    return calls, r_pad
+
+
+def first_pass_inputs(w):
+    """The inputs of each ``a12_accumulate`` call of the first forming pass
+    of a window of :func:`main_window` (or any window given as ``dev``,
+    ``cfg`` and ``start``) at its start state, through its mode: one call
+    for a classic window, one a chunk for a streamed one (FULL or LIGHT
+    tier). Returns (calls, num_pix, knots, order); ``num_pix`` is the row
+    space's R_pad (compacted under ``cfg.compact_cap``)."""
+    knots, Gx, Gy = w["start"]
+    cfg = w["cfg"]
+    mode = M.window_mode(w["dev"], cfg)
+    calls, r_pad = pass_inputs(mode, mode.objective(knots, Gx, Gy)[0], knots, Gx, Gy, cfg)
+    return calls, r_pad, knots.shape[0], cfg.spline_order
+
+
+def forming_inputs(w):
+    """(inputs, num_pix, knots, order) of the one ``a12_accumulate`` call of
+    a classic window's first forming pass (:func:`first_pass_inputs`)."""
+    calls, r_pad, k, order = first_pass_inputs(w)
+    return calls[0], r_pad, k, order
 
 
 def run(device) -> list[dict]:

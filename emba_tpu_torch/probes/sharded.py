@@ -43,6 +43,7 @@ import torch
 from .. import dist, kernels, lm, model as M, solver
 from ..device import full_precision
 from ..kernels import a12_accum as K
+from .a12_parts import pass_inputs
 
 
 def save_window(path, dev: M.DeviceWindow, cfg: M.ModelConfig, start, num_sensor_pix,
@@ -110,14 +111,14 @@ def window_rank(comm, path, max_num_iter: int):
     out = {"events": int(shard.pol_signed.shape[0])}
 
     # the rank's first forming pass: its own halo-resolved inputs
-    lin = dist.linearize_sharded(knots0, gx0, gy0, shard, cfg, comm, nsp)
-    rows, wA, r_pad, _, _ = M.forming_inputs(lin, cfg, lin.e.dtype)
-    args = (rows, lin.i_c, lin.i_p, lin.Jc, lin.Jp, lin.dx, lin.dy, lin.e, wA)
+    mode = place.mode(shard, cfg)
+    lin = mode.objective(knots0, gx0, gy0)[0]
+    (args,), r_pad = pass_inputs(mode, lin, knots0, gx0, gy0, cfg)
     out["kernel"] = _kernel_case(args, r_pad, dim_pose, cfg.spline_order)
-    out["kernel"]["measurements"] = int((wA > 0).sum())
+    out["kernel"]["measurements"] = int((args[8] > 0).sum())
     neq = M.form_normal_eq(lin, gx0, gy0, cfg, knots0.shape[0],
                            1.0 if comm.rank == 0 else 0.0)
-    del lin, args, rows, wA
+    del mode, lin, args
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     comm.reduce_scatter_sum(neq.A12)

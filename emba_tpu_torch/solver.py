@@ -18,12 +18,9 @@ Both loops run the device work of a window through :class:`Phases`, made
 by the window's placement: :data:`LOCAL` (one device holds the whole
 window) or ``dist.Sharded`` (the window's events split over ranks).
 
-With ``cfg.stream_chunk`` both loops stream: the objective is
-:func:`model.cost_and_activity_streamed` (FULL tier) or
-:func:`model.linearize_streamed_light` (LIGHT tier, ``stream_light``), the
-forming pass :func:`model.form_normal_eq_streamed`, and the prev-event
-records (:func:`model.prev_records`) are gathered once a window and handed
-to every pass.
+The objective and the forming pass of every mode (classic, light trial,
+the streamed tiers) are the window's :func:`model.window_mode`; this module
+holds the loops, the placements and the damped solve.
 """
 
 from __future__ import annotations
@@ -111,66 +108,6 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _init_costs(knots, Gx, Gy, dev, cfg):
-    """Linearization + costs at a state."""
-    lin = M.linearize(knots, Gx, Gy, dev, cfg)
-    return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
-
-
-def _init_costs_trial(knots, Gx, Gy, dev, cfg):
-    """The ``light_trial`` objective: the costs and the light
-    linearization, with no (D, N) Jacobians and no prev gather of their
-    rows; :func:`model.form_normal_eq_light` recomputes them after an
-    accepted step only (the reference relinearizes only on accept)."""
-    lin = M.linearize(knots, Gx, Gy, dev, cfg, need_deriv=False)
-    return lin, M.data_cost(lin.e, cfg), M.reg_cost(Gx, Gy, cfg.alpha)
-
-
-def _init_costs_streamed(knots, Gx, Gy, dev, cfg, pb, pbid):
-    """The FULL streamed tier's objective: the (HW,) inlier count map and
-    the costs, chunk by chunk, with no event-sized output; ``pb`` and
-    ``pbid`` are the window's prev records (:func:`model.prev_records`)."""
-    cost_data, nem = M.cost_and_activity_streamed(knots, Gx, Gy, dev, cfg, pb, pbid)
-    return nem, cost_data, M.reg_cost(Gx, Gy, cfg.alpha)
-
-
-def _init_costs_light(knots, Gx, Gy, dev, cfg, pb, pbid):
-    """The LIGHT streamed tier's objective: the light linearization,
-    computed chunk by chunk, and the costs."""
-    lin, cost_data = M.linearize_streamed_light(knots, Gx, Gy, dev, cfg, pb, pbid)
-    return lin, cost_data, M.reg_cost(Gx, Gy, cfg.alpha)
-
-
-def _objective_fn(cfg, prev=None):
-    """The objective of the window's mode, ``(knots, Gx, Gy, dev, cfg) ->
-    (aux, cost_data, cost_reg)``; a streamed one reads the prev records
-    ``prev``."""
-    if cfg.stream_chunk is not None:
-        base = _init_costs_light if cfg.stream_light else _init_costs_streamed
-
-        def streamed(knots, Gx, Gy, dev, cfg_):
-            return base(knots, Gx, Gy, dev, cfg_, *prev)
-        return streamed
-    return _init_costs_trial if cfg.light_trial else _init_costs
-
-
-def _form(aux, knots, Gx, Gy, dev, cfg, num_knots, prev=None):
-    """The forming pass of the window's mode (light trial: Jacobians
-    recomputed; streamed: the whole chunk chain, or its Jacobians in the
-    LIGHT tier)."""
-    if cfg.stream_chunk is not None:
-        return M.form_normal_eq_streamed(aux, knots, Gx, Gy, dev, cfg, num_knots,
-                                         prev_bearings=prev[0], prev_bids=prev[1])
-    if cfg.light_trial:
-        return M.form_normal_eq_light(aux, knots, Gx, Gy, dev, cfg, num_knots)
-    return M.form_normal_eq(aux, Gx, Gy, cfg, num_knots)
-
-
-def _prev(dev_win, cfg):
-    """The window's prev records when it streams, else None."""
-    return M.prev_records(dev_win) if cfg.stream_chunk is not None else None
-
-
 def _neq_stats(neq):
     return neq.active_count, neq.dropped
 
@@ -198,17 +135,18 @@ class Phases:
 
 class Local:
     """The placement of a window that one device holds whole (the default
-    of both loops). A placement makes a window's :class:`Phases` and its
-    prev records, takes its share of a whole window (``shard``), solves
-    the map-only step on it (``solve_map_only``), and says whether a CUDA window may capture its phases
-    in graphs (``graphs``), whether the CPU loop carries the forming input
-    (``carry_aux``), and what else keys a cached graphed loop (``key``)."""
+    of both loops). A placement makes a window's mode (``mode``: the
+    model's :func:`model.window_mode`, which the placement may wrap) and
+    the :class:`Phases` of its loop, takes its share of a whole window
+    (``shard``), solves the map-only step on it (``solve_map_only``), and
+    says whether a CUDA window may capture its phases in graphs
+    (``graphs``) and what else keys a cached graphed loop (``key``)."""
 
     graphs = True
     key = ()
 
-    def prev(self, dev_win, cfg):
-        return _prev(dev_win, cfg)
+    def mode(self, dev_win, cfg) -> M.WindowMode:
+        return M.window_mode(dev_win, cfg)
 
     def shard(self, dev_win):
         return dev_win
@@ -216,56 +154,36 @@ class Local:
     def solve_map_only(self, knots, Gx, Gy, dev_win, cfg, num_iters: int = 1):
         return M.solve_map_only(knots, Gx, Gy, dev_win, cfg, num_iters)
 
-    def carry_aux(self, cfg):
-        return cfg.stream_chunk is not None and not cfg.stream_light
-
     def num_events(self, dev_win) -> int:
         return int(dev_win.pol_signed.shape[0])
 
-    def phases(self, dev_win, cfg, num_knots, damping, fix_first, use_cg, prev) -> Phases:
-        init_costs = _objective_fn(cfg, prev)
+    def damped_solve(self, neq, lam, fix_first, use_cg, early_exit=True, rows_total=None):
+        """(x1, x2, cg_it, cg_err) of the damped system: CG's iterations and
+        relative residual as 0-d tensors, None for the Schur solve.
+        ``early_exit=False`` for a solve captured in a CUDA graph (see
+        :func:`model.solve_normal_eq_cg`); ``rows_total``: as in
+        :func:`model.solve_normal_eq`."""
+        if use_cg:
+            return M.solve_normal_eq_cg(neq, lam, fix_first, early_exit=early_exit)
+        return (*M.solve_normal_eq(neq, lam, fix_first, rows_total=rows_total), None, None)
 
-        def objective(knots, Gx, Gy):
-            return init_costs(knots, Gx, Gy, dev_win, cfg)
-
-        def form(aux, knots, Gx, Gy):
-            return _form(aux, knots, Gx, Gy, dev_win, cfg, num_knots, prev)
-
+    def phases(self, mode: M.WindowMode, damping, fix_first, use_cg) -> Phases:
         def solve(neq, knots, Gx, Gy, lam, early_exit=True, rows_total=None):
-            return _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
-                                 early_exit, rows_total)
+            x1, x2, cg_it, cg_err = self.damped_solve(neq, lam, fix_first, use_cg, early_exit,
+                                                      rows_total)
+            knots_new = M.update_knots(knots, x1, fix_first)
+            gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, neq)
+            return knots_new, gx_new, gy_new, cg_it, cg_err
 
-        return Phases(objective=objective, form=form, solve=solve)
+        return Phases(objective=mode.objective, form=mode.form, solve=solve)
 
     def cost_and_activity(self, knots, Gx, Gy, dev_win, cfg):
-        """(data cost, (HW,) inlier count map) at a state: the light
-        linearization's, or a streamed window's chunked objective's, which
-        holds nothing event-sized."""
-        if cfg.stream_chunk is not None:
-            return M.cost_and_activity_streamed(knots, Gx, Gy, dev_win, cfg)
-        lin = M.linearize(knots, Gx, Gy, dev_win, cfg, need_deriv=False)
-        return M.data_cost(lin.e, cfg), lin.num_ev_map
+        """(data cost, (HW,) inlier count map) at a state, from the mode's
+        pass that holds nothing event-sized."""
+        return self.mode(dev_win, cfg).cost_and_activity(knots, Gx, Gy)
 
 
 LOCAL = Local()
-
-
-def _solve_update(knots, Gx, Gy, neq, lam, damping, fix_first, use_cg,
-                  early_exit=True, rows_total=None):
-    """Schur or CG solve + trial state. Returns (knots', Gx', Gy', cg_it,
-    cg_err): CG's iterations and relative residual as 0-d tensors, None
-    for the Schur solve. ``early_exit=False`` for a solve captured in a
-    CUDA graph (see :func:`model.solve_normal_eq_cg`); ``rows_total``: as
-    in :func:`model.solve_normal_eq`."""
-    if use_cg:
-        x1, x2, cg_it, cg_err = M.solve_normal_eq_cg(neq, lam, fix_first,
-                                                     early_exit=early_exit)
-    else:
-        (x1, x2), cg_it, cg_err = M.solve_normal_eq(
-            neq, lam, fix_first, rows_total=rows_total), None, None
-    knots_new = M.update_knots(knots, x1, fix_first)
-    gx_new, gy_new = M.update_map(Gx, Gy, x2, damping, neq)
-    return knots_new, gx_new, gy_new, cg_it, cg_err
 
 
 def lm_state_dict(sched, knots, Gx, Gy) -> dict:
@@ -322,7 +240,6 @@ def solve_window(
 
     Returns (knots, Gx, Gy, LMStats).
     """
-    num_knots = knots.shape[0]
     device = Gx.device
     dt = Gx.dtype
     stats = LMStats(num_events=placement.num_events(dev_win))
@@ -346,8 +263,7 @@ def solve_window(
         sched.cost_decreased = resume_state["cost_decreased"]
 
     t_loop0 = time.perf_counter()
-    phases = placement.phases(dev_win, cfg, num_knots, damping_factor, fix_first, use_cg,
-                              placement.prev(dev_win, cfg))
+    phases = placement.phases(placement.mode(dev_win, cfg), damping_factor, fix_first, use_cg)
     lin, cost_data_t, cost_reg_t = phases.objective(knots, Gx, Gy)
     cost_data, cost_reg = float(cost_data_t), float(cost_reg_t)
     stats.time_objective_s += time.perf_counter() - t_loop0
@@ -474,7 +390,7 @@ def _loop_phases(phases: Phases, use_cg, early_exit, recs: _Recs):
 _GRAPHED: dict = {}
 
 
-def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
+def _graphed_window(knots, Gx, Gy, dev_win, cfg, damping, tol_fun,
                     fix_first, use_cg, max_num_iter, num_times_tol_fun_sat,
                     placement=LOCAL):
     """The cached (:class:`lm.GraphedLoop`, :class:`_Recs`) of this call's key,
@@ -490,12 +406,10 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
     hit = _GRAPHED.get(key)
     if hit is not None:
         obs.count("lm.graph_hit")
-        win, prev, recs, loop = hit
+        win, mode, recs, loop = hit
         for name, t in tensors.items():
             getattr(win, name).copy_(t)
-        if prev is not None:
-            for buf, t in zip(prev, placement.prev(win, cfg)):
-                buf.copy_(t)
+        mode.reload()
         return loop, recs
     if _GRAPHED:
         obs.count("lm.graph_evict")
@@ -503,14 +417,14 @@ def _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping, tol_fun,
     _GRAPHED.clear()
     torch.cuda.empty_cache()  # the dropped graphs' pools, before the new capture
     win = dataclasses.replace(dev_win, **{name: t.clone() for name, t in tensors.items()})
-    prev = placement.prev(win, cfg)
+    mode = placement.mode(win, cfg)
     recs = _Recs.zeros(Gx.dtype, Gx.device)
-    phases = placement.phases(win, cfg, num_knots, damping, fix_first, use_cg, prev)
+    phases = placement.phases(mode, damping, fix_first, use_cg)
     loop = lm_mod.GraphedLoop(
         knots, Gx, Gy, **_loop_phases(phases, use_cg, False, recs),
         tol_fun=tol_fun, max_num_iter=max_num_iter,
         num_times_tol_fun_sat=num_times_tol_fun_sat)
-    _GRAPHED[key] = (win, prev, recs, loop)
+    _GRAPHED[key] = (win, mode, recs, loop)
     return loop, recs
 
 
@@ -553,27 +467,25 @@ def solve_window_fused(
     Returns (knots, Gx, Gy, cost_min, iterations_used, converged) [+ the
     per-iteration trace when ``return_trace``, see ``lm.TRACE_COLS``].
     """
-    num_knots = knots.shape[0]
     damping = float(damping)
     tol_fun = float(tol_fun)
     sched = dict(tol_fun=tol_fun, max_num_iter=max_num_iter,
                  num_times_tol_fun_sat=num_times_tol_fun_sat)
     if Gx.device.type == "cuda" and placement.graphs:
-        loop, recs = _graphed_window(knots, Gx, Gy, dev_win, cfg, num_knots, damping,
+        loop, recs = _graphed_window(knots, Gx, Gy, dev_win, cfg, damping,
                                      fix_first=fix_first, use_cg=use_cg,
                                      placement=placement, **sched)
         recs.rows.zero_()  # the build's warm-up solve ran through it
         run = loop.run
     else:
         recs = _Recs.zeros(Gx.dtype, Gx.device)
-        phases = _loop_phases(
-            placement.phases(dev_win, cfg, num_knots, damping, fix_first, use_cg,
-                             placement.prev(dev_win, cfg)), use_cg, True, recs)
-        carry_aux = placement.carry_aux(cfg)
+        mode = placement.mode(dev_win, cfg)
+        phases = _loop_phases(placement.phases(mode, damping, fix_first, use_cg), use_cg, True,
+                              recs)
 
         def run(knots, Gx, Gy, **kw):
-            return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched, carry_aux=carry_aux,
-                                   **kw)
+            return lm_mod.lm_while(knots, Gx, Gy, **phases, **sched,
+                                   carry_aux=mode.carry_aux, **kw)
 
     def on_step():
         it, err = recs.cg.tolist()

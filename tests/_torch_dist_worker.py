@@ -50,17 +50,17 @@ def units_rank(comm, data, compact_cap=None):
     dev, cfg, (k, gx, gy) = window(data)
     nsp = data["width"] * data["height"]
     sh = dist.shard_window(dev, comm)
-    lin = dist.linearize_sharded(k, gx, gy, sh, cfg, comm, nsp)
+    mode = dist.Sharded(comm, nsp).mode(sh, cfg)
+    lin = mode.objective(k, gx, gy)[0]
     out = {"lin": {f.name: getattr(lin, f.name).numpy() for f in dataclasses.fields(lin)},
            "has_prev": sh.has_prev.numpy()}
     ccfg = dataclasses.replace(cfg, compact_cap=compact_cap)
-    phases = dist.Sharded(comm, nsp).phases(sh, cfg, k.shape[0], 1.0, True, False, None)
     try:
-        phases.form(phases.objective(k, gx, gy)[0], k, gx, gy)
+        mode.form(lin, k, gx, gy)
         out["split_error"] = ""
     except ValueError as err:
         out["split_error"] = str(err)
-    lin_c = dist.linearize_sharded(k, gx, gy, sh, ccfg, comm, nsp)
+    lin_c = dist.Sharded(comm, nsp).mode(sh, ccfg).objective(k, gx, gy)[0]
     red = dist.reduce_normal_eq(M.form_normal_eq(lin_c, gx, gy, ccfg, k.shape[0],
                                                  1.0 if comm.rank == 0 else 0.0), comm)
     out["red"] = _neq(red)

@@ -10,6 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import camera as jcam
 from emba_tpu_torch import camera as tcam
 

@@ -19,19 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import model as JM
 from emba_tpu import pairing, spline, synth
 from emba_tpu_torch import convert
 from emba_tpu_torch import model as TM
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny tensors: one intra-op thread (see test_torch_pipeline.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, want):
@@ -140,7 +133,8 @@ def test_form_normal_eq_light_matches_classic_and_jax(small, sample_mode):
     jc, tc = JM.ModelConfig(**cfg), TM.ModelConfig(**cfg)
     k = small["num_knots"]
     tl = TM.linearize(*small["tstate"], small["tdev"], tc, need_deriv=False)
-    got = TM.form_normal_eq_light(tl, *small["tstate"], small["tdev"], tc, k)
+    got = TM.window_mode(small["tdev"], dataclasses.replace(tc, light_trial=True)).form(
+        tl, *small["tstate"])
     classic = TM.form_normal_eq(TM.linearize(*small["tstate"], small["tdev"], tc),
                                 *small["tstate"][1:], tc, k)
     for f in dataclasses.fields(got):

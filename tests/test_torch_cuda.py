@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu_torch import kernels, lm, obs, solver, spline, synth
 from emba_tpu_torch.pairing import build_window
 from emba_tpu_torch import model as TM

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import _torch_dist_worker as W
+import _torch_threads  # noqa: F401  (one torch thread)
 import emba_tpu.config as JC
 import emba_tpu.pipeline as JP
 from emba_tpu import cli as jcli
@@ -38,14 +39,6 @@ TWO = dict(start_time=0.0, stop_time=0.6, c_th=0.1, alpha=0.5, max_num_iter=4,
            dt_knots=0.05, dtype="float64", time_window_size=0.3,
            sliding_window_stride=0.3)
 RECORD = {**TWO, "lm_checkpoint_every": 1, "super_res_height": 96}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, want):

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import model as JM
 from emba_tpu import pairing
 from emba_tpu import solver as JS

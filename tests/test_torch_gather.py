@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu_torch.kernels import gather_sum as TG
 from emba_tpu_torch.probes import gather_probe
 

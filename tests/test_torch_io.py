@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import config as JC
 from emba_tpu import io as jio
 from emba_tpu import lie as jlie
@@ -36,17 +38,6 @@ from emba_tpu_torch import rosbag as trb
 RNG = np.random.default_rng(21)
 RECON_REL = 1e-10
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads only wait on one
-    another (and on the other test workers), which made these tests up to
-    10x slower on a loaded machine. One thread for this file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 import emba_tpu.kernels.a12_accum as JK
 from emba_tpu_torch.kernels import a12_accum as TK
 

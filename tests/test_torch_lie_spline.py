@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import lie as jlie
 from emba_tpu import spline as jspline
 from emba_tpu_torch import lie as tlie

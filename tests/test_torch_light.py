@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import model as JM
 from emba_tpu import pairing, solver as JS, spline, synth
 from emba_tpu_torch import lm as TL
@@ -30,15 +32,6 @@ from test_torch_lm import EagerPhase
 CFG = dict(c_th=0.1, pano_width=192, pano_height=96, thres_valid_pixel=3, alpha=0.5,
            outlier_dp_norm=3.0)
 ITERS = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny tensors: one intra-op thread (see test_torch_pipeline.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, want):
@@ -119,8 +112,7 @@ def test_light_trial_graphed_window(setup, monkeypatch):
     monkeypatch.setattr(TS, "_GRAPHED", {})
     cfg = TM.ModelConfig(**CFG, light_trial=True)
     want = port_fused(setup, cfg)
-    loop, _cg = TS._graphed_window(*setup["tstate"], setup["tdev"], cfg,
-                                   setup["tstate"][0].shape[0], 1.0, tol_fun=1e-3,
+    loop, _cg = TS._graphed_window(*setup["tstate"], setup["tdev"], cfg, 1.0, tol_fun=1e-3,
                                    fix_first=True, use_cg=False, max_num_iter=ITERS,
                                    num_times_tol_fun_sat=2)
     stats = TL.LoopStats()

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import lm as JL
 from emba_tpu_torch import kernels, obs, pairing
 from emba_tpu_torch import lm as TL
@@ -218,8 +220,7 @@ def test_cached_graphed_window_runs_windows_like_lm_while(eager_graphs, monkeypa
                                                scene.gy * scale)]
         want = TS.solve_window_fused(*start, win, cfg, 1.0, 1e-3, fix_first=True,
                                      max_num_iter=4, return_trace=True)
-        loop, _cg = TS._graphed_window(*start, win, cfg, start[0].shape[0], 1.0,
-                                       **settings)
+        loop, _cg = TS._graphed_window(*start, win, cfg, 1.0, **settings)
         stats = TL.LoopStats()
         got = loop.run(*start, stats=stats)
         for g, w in zip(got, want):
@@ -254,8 +255,7 @@ def test_graphed_window_cache_counts_in_the_run_record(eager_graphs, monkeypatch
     replays = []
     with obs.recording(rec):
         for win in (dev, dev, fewer):
-            loop, _cg = TS._graphed_window(*start, win, cfg, start[0].shape[0], 1.0,
-                                           **settings)
+            loop, _cg = TS._graphed_window(*start, win, cfg, 1.0, **settings)
             stats = TL.LoopStats()
             loop.run(*start, stats=stats)
             replays.append(stats.replays)
@@ -290,7 +290,7 @@ def test_graphed_window_counts_the_rows_its_solves_listed(eager_graphs, monkeypa
     cfg = TM.ModelConfig(c_th=0.2, pano_width=128, pano_height=64,
                          thres_valid_pixel=3, alpha=2.0)
     start = [torch.from_numpy(a) for a in (scene.traj.knots, scene.gx, scene.gy)]
-    loop, recs = TS._graphed_window(*start, dev, cfg, start[0].shape[0], 1.0, tol_fun=1e-3,
+    loop, recs = TS._graphed_window(*start, dev, cfg, 1.0, tol_fun=1e-3,
                                     fix_first=True, use_cg=False, max_num_iter=4,
                                     num_times_tol_fun_sat=2)
     recs.rows.zero_()

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import model as JM
 from emba_tpu import pairing, spline, synth
 from emba_tpu_torch import model as TM
@@ -97,7 +99,7 @@ def test_map_only_is_exact_quadratic_minimizer(problem):
 
     g = [gx1.clone().requires_grad_(True), gy1.clone().requires_grad_(True)]
     gxa, gya = (torch.where(act, v, torch.zeros_like(v)) for v in g)
-    cost, _ = TM.cost_and_activity_streamed(knots, gxa, gya, problem["tdev"], cfg)
+    cost, _ = TM.window_mode(problem["tdev"], cfg).cost_and_activity(knots, gxa, gya)
     ggx, ggy = torch.autograd.grad(cost + TM.reg_cost(gxa, gya, cfg.alpha), g)
     assert float(ggx[act].abs().max()) < 1e-8 and float(ggy[act].abs().max()) < 1e-8
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import model as JM
 from emba_tpu import pairing, spline, synth
 from emba_tpu import warp as JW
@@ -205,22 +207,18 @@ def test_ported_config_fields_form_like_jax(case, field):
     tk, tgx, tgy = convert.state_from_numpy(*case["state"], torch.float64, "cpu")
     if tc.stream_light:
         jl, _ = JM.linearize_streamed_light(jk, jgx, jgy, case["jdev"], jc)
-        tl, _ = TM.linearize_streamed_light(tk, tgx, tgy, case["tdev"], tc)
     elif tc.stream_chunk is not None:
         jl = JM.cost_and_activity_streamed(jk, jgx, jgy, case["jdev"], jc)[1]
-        tl = TM.cost_and_activity_streamed(tk, tgx, tgy, case["tdev"], tc)[1]
     else:
         jl = JM.linearize(jk, jgx, jgy, case["jdev"], jc, not tc.light_trial)
-        tl = TM.linearize(tk, tgx, tgy, case["tdev"], tc, need_deriv=not tc.light_trial)
     if tc.stream_chunk is not None:
         jn = JM.form_normal_eq_streamed(jl, jk, jgx, jgy, case["jdev"], jc, k)
-        tn = TM.form_normal_eq_streamed(tl, tk, tgx, tgy, case["tdev"], tc, k)
     elif tc.light_trial:
         jn = JM.form_normal_eq_light(jl, jk, jgx, jgy, case["jdev"], jc, k)
-        tn = TM.form_normal_eq_light(tl, tk, tgx, tgy, case["tdev"], tc, k)
     else:
         jn = JM.form_normal_eq(jl, jgx, jgy, jc, k)
-        tn = TM.form_normal_eq(tl, tgx, tgy, tc, k)
+    mode = TM.window_mode(case["tdev"], tc)
+    tn = mode.form(mode.objective(tk, tgx, tgy)[0], tk, tgx, tgy)
     assert int(tn.dropped) == int(jn.dropped) == 0
     assert int(tn.active_count) == int(jn.active_count)
     assert rel_err(tn.A11, jn.A11) <= 1e-10 and rel_err(tn.b1, jn.b1) <= 1e-10

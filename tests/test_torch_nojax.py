@@ -15,6 +15,8 @@ import os
 import subprocess
 import sys
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -86,7 +88,7 @@ print("JAX_MODULES", loaded)
 
 
 def test_port_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -109,7 +111,7 @@ print("JAX_MODULES", loaded)
 
 
 def test_dist_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", DIST_SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -18,6 +18,8 @@ from concurrent.futures import ThreadPoolExecutor
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu_torch import obs
 
 CLOCK_NS = 50_000

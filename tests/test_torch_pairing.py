@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 import _host_window as HW
 from emba_tpu import pairing as JP
 from emba_tpu import synth as jsynth

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 import emba_tpu.config as JC
 import emba_tpu.pipeline as JP
 from emba_tpu import cli as jcli
@@ -43,17 +45,6 @@ TWO = dict(start_time=0.0, stop_time=0.6, c_th=0.1, alpha=0.5, max_num_iter=4,
 CASES = {"one": ONE, "two": TWO}
 PLAN = TP.plan_model_config
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads only wait on one
-    another (and on the other test workers), which made these tests up to
-    10x slower on a loaded machine. One thread for this file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu_torch import model as TM
 from emba_tpu_torch.kernels import schur_rows as SR
 

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import lm as JL
 from emba_tpu import model as JM
 from emba_tpu import pairing, spline, synth
@@ -99,14 +101,15 @@ def test_streamed_form_matches_jax_and_classic(case, sc):
     cfg = TM.ModelConfig(**CFG, stream_chunk=sc)
     jcfg = JM.ModelConfig(**CFG, stream_chunk=sc)
     lin, neq0 = classic(case, TM.ModelConfig(**CFG))
-    cost, nem = TM.cost_and_activity_streamed(*case["t"], case["tdev"], cfg)
+    mode = TM.window_mode(case["tdev"], cfg)
+    cost, nem = mode.cost_and_activity(*case["t"])
     assert rel_err(cost, TM.data_cost(lin.e, cfg)) <= 1e-12
     assert torch.equal(nem, lin.num_ev_map)
     jcost, jnem = JM.cost_and_activity_streamed(*case["j"], case["jdev"], jcfg)
     assert rel_err(cost, jcost) <= 1e-12
     np.testing.assert_array_equal(nem.numpy(), np.asarray(jnem))
 
-    neq = TM.form_normal_eq_streamed(nem, *case["t"], case["tdev"], cfg, case["nk"])
+    neq = mode.form(TM.Activity(nem), *case["t"])
     assert_neq(neq, neq0, 1e-10, f"classic sc={sc}")
     jneq = JM.form_normal_eq_streamed(jnem, *case["j"], case["jdev"], jcfg, case["nk"])
     assert_neq(neq, jneq, 1e-10, f"jax sc={sc}")
@@ -114,7 +117,7 @@ def test_streamed_form_matches_jax_and_classic(case, sc):
     # compaction composes: a cap above the active count, the same solve
     cap = int(neq0.active_count) + 11
     cfg_c = dataclasses.replace(cfg, compact_cap=cap)
-    neq_c = TM.form_normal_eq_streamed(nem, *case["t"], case["tdev"], cfg_c, case["nk"])
+    neq_c = TM.window_mode(case["tdev"], cfg_c).form(TM.Activity(nem), *case["t"])
     jneq_c = JM.form_normal_eq_streamed(
         jnem, *case["j"], case["jdev"], dataclasses.replace(jcfg, compact_cap=cap),
         case["nk"])
@@ -135,14 +138,14 @@ def test_streamed_light_form_matches_jax_and_classic(case, sc):
     light = TM.linearize(*case["t"], case["tdev"], cfg, need_deriv=False)
     assert light.Jc.shape[1] == 0
     jlight = JM.linearize(*case["j"], case["jdev"], jcfg, False)
-    neq = TM.form_normal_eq_streamed(light, *case["t"], case["tdev"], cfg, case["nk"])
+    neq = TM.window_mode(case["tdev"], cfg).form(light, *case["t"])
     assert_neq(neq, neq0, 1e-10, f"classic sc={sc}")
     jneq = JM.form_normal_eq_streamed(jlight, *case["j"], case["jdev"], jcfg, case["nk"])
     assert_neq(neq, jneq, 1e-10, f"jax sc={sc}")
 
     cap = int(neq0.active_count) + 11
     cfg_c = dataclasses.replace(cfg, compact_cap=cap)
-    neq_c = TM.form_normal_eq_streamed(light, *case["t"], case["tdev"], cfg_c, case["nk"])
+    neq_c = TM.window_mode(case["tdev"], cfg_c).form(light, *case["t"])
     x1a, _ = TM.solve_normal_eq(neq0, 1e-3, True)
     x1b, _ = TM.solve_normal_eq(neq_c, 1e-3, True)
     assert rel_err(x1b, x1a) <= 1e-8
@@ -156,7 +159,7 @@ def test_linearize_streamed_light_matches_onepass_and_jax(case, sc):
     round through their scalar tail) and JAX's streamed one."""
     cfg = TM.ModelConfig(**CFG, stream_chunk=sc, stream_light=True)
     ref = TM.linearize(*case["t"], case["tdev"], cfg, need_deriv=False)
-    lin, cost = TM.linearize_streamed_light(*case["t"], case["tdev"], cfg)
+    lin, cost, _ = TM.window_mode(case["tdev"], cfg).objective(*case["t"])
     jlin, jcost = JM.linearize_streamed_light(
         *case["j"], case["jdev"], JM.ModelConfig(**CFG, stream_chunk=sc, stream_light=True))
     for f in ("inlier", "pm_pix", "num_ev_map", "i_c", "i_p"):
@@ -181,10 +184,11 @@ def test_streamed_f32_forming_matches_jax_xla(case):
     jdev = JM.DeviceWindow.from_window(win, lut, width, jnp.float32)
     t = tuple(torch.from_numpy(np.asarray(a, np.float32)) for a in case["state"])
     j = tuple(jnp.asarray(a, jnp.float32) for a in case["state"])
-    _, nem = TM.cost_and_activity_streamed(*t, tdev, cfg)
+    mode = TM.window_mode(tdev, cfg)
+    _, nem = mode.cost_and_activity(*t)
     _, jnem = JM.cost_and_activity_streamed(*j, jdev, jcfg)
     np.testing.assert_array_equal(nem.numpy(), np.asarray(jnem))
-    neq = TM.form_normal_eq_streamed(nem, *t, tdev, cfg, case["nk"])
+    neq = mode.form(TM.Activity(nem), *t)
     jneq = JM.form_normal_eq_streamed(jnem, *j, jdev, jcfg, case["nk"])
     for f in FIELDS[:-1]:
         np.testing.assert_allclose(getattr(neq, f).numpy(), np.asarray(getattr(jneq, f)),

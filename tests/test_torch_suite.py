@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 from emba_tpu import cli as jcli
 from emba_tpu import eval_suite as JE
 from emba_tpu import io as jio
@@ -39,15 +41,6 @@ from emba_tpu_torch.spline import Trajectory
 TINY = dict(sensor=16, pano_height=32, max_iter=3)
 ROW = ("tiny", 3, 0.25, 2, 3.0, 0.3)  # name, seed, motion, smooth, amp, duration
 REL = 1e-8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny tensors: one intra-op thread (see test_torch_pipeline.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_rows_match(t, j):
