@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -174,9 +175,14 @@ class DeviceWindow:
         pol = dev.has_prev.view(torch.int8)[:n]
         with obs.span("upload.copy"):
             lut = torch.from_numpy(np.ascontiguousarray(np.asarray(bearing_lut).T)).to(dtype)
-            copies = [(dst, torch.from_numpy(np.ascontiguousarray(a, dt))) for dst, a, dt in (
-                (dev.prev_idx[:n], win.x, np.int32), (dev.sensor_pix[:n], win.y, np.int32),
-                (pol, win.pol, np.int8), (dev.batch_s, win.batch_s, np.int32))]
+            cols = ((dev.prev_idx[:n], win.x, np.int32), (dev.sensor_pix[:n], win.y, np.int32),
+                    (pol, win.pol, np.int8), (dev.batch_s, win.batch_s, np.int32))
+            # the columns may be the pipeline's read-only views of the caller's
+            # arrays; these tensors are only read, so torch's warning is moot
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                copies = [(dst, torch.from_numpy(np.ascontiguousarray(a, dt)))
+                          for dst, a, dt in cols]
             copies.append((dev.batch_u, torch.from_numpy(np.asarray(win.batch_u)).to(dtype)))
             obs.count("window.upload_bytes", lut.nbytes + sum(src.nbytes for _, src in copies))
             for dst, src in copies:

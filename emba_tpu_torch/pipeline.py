@@ -267,6 +267,49 @@ def plan_model_config(
     return mcfg, auto_cap
 
 
+# Events a block of the constructor's order check compares, so that the
+# check makes no event-sized temporary.
+ORDER_CHECK_BLOCK = 1 << 17
+
+
+def is_time_ordered(t) -> bool:
+    """Whether ``t`` is non-decreasing (ties and -0.0 / 0.0 included; a NaN
+    anywhere makes it not), compared a block of :data:`ORDER_CHECK_BLOCK`
+    at a time, stopping at the first block out of order. On such times a
+    stable argsort is the identity."""
+    n = len(t)
+    if n and np.isnan(t[:1]).any():
+        return False
+    buf = np.empty(min(n, ORDER_CHECK_BLOCK), bool)
+    for lo in range(0, n - 1, ORDER_CHECK_BLOCK):
+        hi = min(lo + ORDER_CHECK_BLOCK, n - 1)
+        ok = buf[:hi - lo]
+        np.less_equal(t[lo:hi], t[lo + 1:hi + 1], out=ok)
+        if not ok.all():
+            return False
+    return True
+
+
+def sort_cut(t, x, y, pol, t0: float, t1: float):
+    """The events with ``t0 + 1e-6 <= t <= t1``, stably sorted by time.
+    Times already in order (the loaders' and every caller's) are cut as one
+    contiguous slice of the caller's columns, with no sort or copy; others
+    are sorted, gathered and masked. Either way the columns hold the same
+    values in the same order and dtypes. Returns the four columns and
+    whether the times were in order."""
+    if is_time_ordered(t):
+        # the mask's comparisons are made in this type (a float32 bound stays
+        # float32), so the slice's ends are where the mask turns
+        lo_b, hi_b = t0 + 1e-6, t1
+        lo = np.searchsorted(t, np.asarray(lo_b, np.result_type(t, lo_b)), side="left")
+        hi = np.searchsorted(t, np.asarray(hi_b, np.result_type(t, hi_b)), side="right")
+        return t[lo:hi], x[lo:hi], y[lo:hi], pol[lo:hi], True
+    order = np.argsort(t, kind="stable")
+    t, x, y, pol = t[order], x[order], y[order], pol[order]
+    m = (t >= t0 + 1e-6) & (t <= t1)
+    return t[m], x[m], y[m], pol[m], False
+
+
 def systematic_subsample(t, x, y, pol, rate: int):
     """Keep every ``rate``-th event (reference ``emba.cpp:282-304``)."""
     if rate < 2:
@@ -337,6 +380,10 @@ class EmbaPipeline:
         seed: int = 0,
         device=None,
     ):
+        """``events``: the columns (t, x, y, pol) as numpy arrays. Where the
+        times are in order the pipeline keeps read-only views of them for
+        the run (no copy), so the caller's arrays must not change until it
+        is done; other times are sorted into copies of their own."""
         self.record = obs.Record()
         self._launches0 = kernels.launch_counts()
         with obs.recording(self.record), obs.span("pipeline.init"):
@@ -372,17 +419,16 @@ class EmbaPipeline:
             self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
 
             with obs.span("init.sort_cut"):
-                t, x, y, pol = events
-                order = np.argsort(t, kind="stable")
-                t, x, y, pol = t[order], x[order], y[order], pol[order]
                 # BA interval cut (+ time offset already applied upstream)
                 t0 = cfg.start_time + cfg.time_offset
                 t1 = cfg.stop_time + cfg.time_offset
-                m = (t >= t0 + 1e-6) & (t <= t1)
-                t, x, y, pol = t[m], x[m], y[m], pol[m]
+                *cut, presorted = sort_cut(*events, t0, t1)
+                obs.count("init.presorted", int(presorted))
                 self.t, self.x, self.y, self.pol = systematic_subsample(
-                    t, x, y, pol, cfg.event_sampling_rate
+                    *cut, cfg.event_sampling_rate
                 )
+                for a in (self.t, self.x, self.y, self.pol):
+                    a.flags.writeable = False
 
             self.pose_times = np.asarray(pose_times, np.float64)
             self.pose_rotations = np.asarray(pose_rotations, np.float64)

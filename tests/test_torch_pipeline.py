@@ -576,6 +576,29 @@ def test_run_record_counts_the_rows_each_solve_listed(dataset, monkeypatch, mode
     assert "lm.status_wait" not in pipe.record.repeats
 
 
+def test_fused_run_leaves_the_callers_events_untouched(dataset):
+    """The constructor keeps read-only views of time-ordered events: a whole
+    fused run leaves the caller's four arrays bit for bit as they were (and
+    writeable), the pipeline's columns are not writeable, and the run gives
+    the bits of a run on the same events shuffled, which the constructor
+    sorts into copies of its own."""
+    before = [a.copy() for a in dataset["events"]]
+    pipe = port_pipe(dataset, TC.BAConfig(**ONE, fused_lm=True))
+    got = pipe.run()
+    assert pipe.record.counters["init.presorted"] == 1
+    for col, a, b in zip((pipe.t, pipe.x, pipe.y, pipe.pol), dataset["events"], before):
+        assert not col.flags.writeable and np.shares_memory(col, a)
+        assert a.flags.writeable and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+    perm = np.random.default_rng(0).permutation(len(before[0]))
+    shuffled = dict(dataset, events=tuple(a[perm] for a in before))
+    other = port_pipe(shuffled, TC.BAConfig(**ONE, fused_lm=True))
+    want = other.run()
+    assert other.record.counters["init.presorted"] == 0
+    assert np.array_equal(got.trajectory.knots, want.trajectory.knots)
+    assert np.array_equal(got.gx, want.gx) and np.array_equal(got.gy, want.gy)
+
+
 def test_pipeline_pairs_on_the_device_only(dataset, monkeypatch):
     """A one-window job never pairs on the host: with
     ``pairing.compute_prev_index`` raising, the job runs and gives the same
